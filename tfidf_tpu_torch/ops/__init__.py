@@ -1,0 +1,1 @@
+"""See the package docstring of tfidf_tpu_torch."""
