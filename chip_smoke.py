@@ -10,14 +10,18 @@ beside it. Phases (any failure fails the run):
    ``tfidf_tpu_torch/csrc`` (one nvcc per source, started together);
 2. kernels against their plain PyTorch versions on the card, over a case
    matrix made from ``--seed``: variants v3 == v4 == plain, bitwise, and
-   identical top-10;
+   identical top-10; then ``packed_topk_chunked`` on the card against a
+   numpy lexsort on tie-heavy cases (clamped tail, signed scores, ids
+   past 2^23): ids identical, values equal to the bit;
 3. the main path at the north-star size (BASELINE config 3: 1M docs,
    500k vocab, Zipf 1.25, avg length 120, batch 512, top-10): bulk load,
    commit, serve batches through ``Engine.search_batch`` and
    ``Engine.search_batch_arrays`` with the launch counts reset just
-   before and read just after; top-10 against a scipy CSR oracle; q/s,
-   commit time, device memory, per-phase ms; then the same for the v3
-   variant on its own;
+   before and read just after; top-10 against a scipy CSR oracle, with
+   the returned order held to the tie rule (scores never rise, equal
+   scores in ascending row order); q/s, commit time, device memory,
+   per-phase ms, and one batch's top-k against a numpy lexsort of its own
+   f32 scores; then the same for the v3 variant on its own;
 4. the text path: the five-document corpus through ``ingest_text``.
 
 Then one ``{"kernels": [...]}`` line (per kernel: launches on its path,
@@ -47,6 +51,7 @@ NS_VOCAB = 500_000
 NS_AVG_LEN = 120
 NS_BATCH = 512
 NS_BATCHES = 4                 # through search_batch, plus one arrays batch
+TOPK_ROWS = 64                 # main-path rows whose top-k numpy re-checks
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 
@@ -221,6 +226,93 @@ def kernel_cases(seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 2b: the top-k's tie rule on the card, against numpy
+# --------------------------------------------------------------------------
+
+def ref_topk(s: np.ndarray, num_docs: int, k: int):
+    """numpy top-k of one score row with the reference's tie rule:
+    descending score, ascending id among equal scores (a lexsort of every
+    candidate at or above the k-th value, so no tie group is cut)."""
+    s = s[:num_docs]
+    kth = np.partition(s, s.shape[0] - k)[s.shape[0] - k]
+    cand = np.flatnonzero(s >= kth)
+    order = cand[np.lexsort((cand, -s[cand]))][:k]
+    return s[order], order.astype(np.int32)
+
+
+def check_topk(scores: np.ndarray, packed, num_docs: int, k: int,
+               what: str) -> int:
+    """Hold packed top-k rows to :func:`ref_topk`: ids identical and
+    values equal to the bit. Returns the number of ranks whose score
+    equals the next rank's (ties the rule had to order)."""
+    from tfidf_tpu_torch.ops.topk import unpack_topk
+    vals, ids = unpack_topk(packed)
+    tied = 0
+    for r in range(scores.shape[0]):
+        want_v, want_i = ref_topk(scores[r], num_docs, k)
+        if not (np.array_equal(ids[r], want_i)
+                and np.array_equal(vals[r].view(np.int32),
+                                   want_v.view(np.int32))):
+            raise SystemExit(f"{what}: row {r} top-{k} {ids[r].tolist()} "
+                             f"{vals[r].tolist()} != numpy "
+                             f"{want_i.tolist()} {want_v.tolist()}")
+        tied += int((want_v[1:] == want_v[:-1]).sum())
+    return tied
+
+
+def topk_case_scores(rng, name: str):
+    """(scores, num_docs, k, chunk) of one tie-heavy top-k case."""
+    if name == "tie_heavy_clamped_tail":
+        # 3 chunks of 2^17 with the last one clamped back over the second;
+        # hot tied values land anywhere, the overlap included
+        doc_cap, chunk = 300_007, 1 << 17
+        s = rng.integers(0, 3, size=(64, doc_cap)).astype(np.float32) * 0.5
+        for r in range(64):
+            hot = np.concatenate([rng.integers(0, doc_cap, 24),
+                                  rng.integers(doc_cap - chunk, 2 * chunk, 8)])
+            s[r, hot] = rng.integers(3, 6, hot.shape[0]) * 0.5
+        return s, doc_cap - 7, 10, chunk
+    if name == "signed_quantized":
+        # normals rounded to 1/8: ties and negative scores (+0.0 only)
+        s = np.round(rng.standard_normal((64, 200_000)) * 8) / 8 + 0.0
+        return s.astype(np.float32), 199_990, 10, 1 << 16
+    if name == "ids_past_2_pow_23":
+        # ids >= 2^23 on the int32 wire, ties across the clamped tail
+        doc_cap, chunk = (1 << 23) + 3001, 1 << 21
+        s = np.zeros((4, doc_cap), np.float32)
+        for r in range(4):
+            hot = np.concatenate([rng.integers(1 << 23, doc_cap, 12),
+                                  rng.integers(0, 1 << 23, 4)])
+            s[r, hot] = rng.integers(1, 3, hot.shape[0]).astype(np.float32)
+        return s, doc_cap - 1, 10, chunk
+    raise ValueError(name)
+
+
+TOPK_CASES = ("tie_heavy_clamped_tail", "signed_quantized",
+              "ids_past_2_pow_23")
+
+
+def topk_cases(seed: int) -> dict:
+    """Phase 2b: ``packed_topk_chunked`` on the card against numpy, on
+    cases built so that most ranks are exact f32 ties."""
+    from tfidf_tpu_torch.ops.topk import fetch_packed, packed_topk_chunked
+    rng = np.random.default_rng(seed + 1)
+    out = {}
+    for name in TOPK_CASES:
+        s, num_docs, k, chunk = topk_case_scores(rng, name)
+        packed = fetch_packed(packed_topk_chunked(
+            torch.from_numpy(s).cuda(), num_docs, k=k, chunk=chunk))
+        tied = check_topk(s, packed, num_docs, k, f"topk {name}")
+        out[name] = {"shape": list(s.shape), "chunk": chunk,
+                     "tied_ranks": tied}
+        log(f"[topk] {name} {s.shape} chunk {chunk}: identical to numpy "
+            f"lexsort, {tied} tied ranks")
+        if tied == 0:
+            raise SystemExit(f"topk {name}: the case made no ties")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 3: the main path at the north-star size
 # --------------------------------------------------------------------------
 
@@ -290,6 +382,13 @@ def oracle_check(corpus, queries, hits, vocab: int, doc_names) -> dict:
         order = order[s[order] > 0]
         got_ids = np.asarray([int(h.name[1:]) for h in got])
         got_sc = np.asarray([h.score for h in got])
+        # the engine's own f32 order: scores never rise, and equal scores
+        # come in ascending snapshot row order
+        d = np.diff(got_sc)
+        rows = row_of[got_ids]
+        if (d > 0).any() or ((d == 0) & (np.diff(rows) <= 0)).any():
+            raise SystemExit(f"oracle: query {i} breaks the tie rule: "
+                             f"{list(zip(got_sc.tolist(), rows.tolist()))}")
         if got_ids.shape != order.shape:
             raise SystemExit(f"oracle: query {i} has {len(got_ids)} hits, "
                              f"oracle {len(order)}")
@@ -327,8 +426,9 @@ def drive(engine, queries, chunks_arrays) -> tuple:
 
 
 def phase_breakdown(engine, queries) -> tuple:
-    """Per-phase ms of one batch, each phase closed by a synchronize;
-    returns (ms by phase, the batch's QueryBatch)."""
+    """Per-phase ms of one batch, each phase closed by a synchronize,
+    then its top-k checked against numpy on the first ``TOPK_ROWS``
+    queries; returns (ms by phase, the batch's QueryBatch, tied ranks)."""
     from tfidf_tpu_torch.ops.ell import score_ell_batch
     from tfidf_tpu_torch.ops.topk import fetch_packed, packed_topk_chunked
     s = engine.searcher
@@ -339,21 +439,27 @@ def phase_breakdown(engine, queries) -> tuple:
     sync()
     t.append(time.perf_counter())
     scores = score_ell_batch(
-        snap.ell_impacts, snap.ell_terms, snap.ell_live, snap.res_tf,
+        snap.ell_impacts, snap.ell_terms, snap.ell_impacts_t,
+        snap.ell_terms_t, snap.ell_live, snap.ell_index, snap.res_tf,
         snap.res_term, snap.res_doc, snap.doc_len, snap.df, qb,
         snap.n_docs, snap.avgdl, snap.doc_norms, use_pallas=True,
-        a_build="v4", impacts_t=snap.ell_impacts_t,
-        terms_t=snap.ell_terms_t, index=snap.ell_index,
-        res_plan=snap.res_plan, **engine.model.score_kwargs())
+        a_build="v4", res_plan=snap.res_plan,
+        **engine.model.score_kwargs())
     sync()
     t.append(time.perf_counter())
     packed = packed_topk_chunked(scores, snap.num_docs, k=TOP_K)
     sync()
     t.append(time.perf_counter())
-    fetch_packed(packed)
+    packed = fetch_packed(packed)
     t.append(time.perf_counter())
     names = ("vectorize", "score", "topk", "fetch")
-    return {n: (t[i + 1] - t[i]) * 1e3 for i, n in enumerate(names)}, qb
+    ms = {n: (t[i + 1] - t[i]) * 1e3 for i, n in enumerate(names)}
+    # the served top-k of this batch's own f32 scores, held to numpy
+    tied = check_topk(scores[:TOPK_ROWS].cpu().numpy(), packed[:TOPK_ROWS],
+                      snap.num_docs, TOP_K, "main-path topk")
+    log(f"[main] top-{TOP_K} of {TOPK_ROWS} served rows identical to numpy "
+        f"lexsort over the engine's f32 scores, {tied} tied ranks")
+    return ms, qb, tied
 
 
 def main_path_kernel_times(engine, qb) -> dict:
@@ -479,7 +585,7 @@ def main_path(seed: int, n_docs: int) -> dict:
     log(f"[main] v3 path: {chunks * NS_BATCH / secs_v3:.1f} q/s, "
         f"launches {counts_v3}, results identical to v4")
 
-    breakdown, qb = phase_breakdown(engine, extra)
+    breakdown, qb, tied = phase_breakdown(engine, extra)
     log(f"[main] per-phase ms (one batch, synchronized): {breakdown}")
     ktimes = main_path_kernel_times(engine, qb)
     log(f"[main] per-batch kernel times: {ktimes}")
@@ -488,7 +594,8 @@ def main_path(seed: int, n_docs: int) -> dict:
             "qps_v3": chunks * NS_BATCH / secs_v3,
             "launches": {"v4": counts["v4"], "v3": counts_v3["v3"]},
             "expected_launches": want, "memory": mem,
-            "phase_ms": breakdown, "oracle": oracle, "kernel": ktimes}
+            "phase_ms": breakdown, "oracle": oracle,
+            "topk_tied_ranks": tied, "kernel": ktimes}
 
 
 def text_path() -> dict:
@@ -567,6 +674,7 @@ def main() -> int:
 
     # ---- phase 2: kernels against their plain versions ----
     cases = kernel_cases(args.seed)
+    topk = topk_cases(args.seed)
     # ---- phase 3: the main path ----
     main_res = main_path(args.seed, args.docs)
     # ---- phase 4: the text path ----
@@ -586,6 +694,7 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kind": kind, "cases": cases,
+                   "topk": topk,
                    "main": main_res, "text": text,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,

@@ -1,6 +1,7 @@
 """Tests of the port that need the card (marker ``cuda``).
 
-The CUDA kernel has no interpret mode, so these skip, with the reason,
+The CUDA kernel has no interpret mode, and the top-k's tie rule matters
+where ``torch.topk`` gives no tie order, so these skip, with the reason,
 where ``torch.cuda.is_available()`` is false. On the GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -21,7 +22,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the ELL kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: these run the ELL kernel and the "
+                    "top-k on CUDA tensors")
     return torch.device("cuda")
 
 
@@ -71,3 +73,32 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
                              qc_t, 10)
     with pytest.raises(ValueError, match="cpu"):
         E.score_block_kernel(imp_t, term_t, slot_of.cpu(), qc_t, 10)
+
+
+def _ref_topk(s, num_docs, k):
+    """numpy top-k with the reference's tie rule (score desc, id asc)."""
+    s = s[:num_docs]
+    order = np.lexsort((np.arange(s.shape[0]), -s))[:k]
+    return s[order], order.astype(np.int32)
+
+
+@pytest.mark.parametrize("doc_cap,chunk,num_docs", [
+    (300_007, 1 << 17, 300_000),           # clamped tail over chunk 2
+    ((1 << 23) + 3001, 1 << 21, (1 << 23) + 3000),   # ids past 2^23
+])
+def test_packed_topk_chunked_tie_rule_on_card(cuda, doc_cap, chunk,
+                                              num_docs):
+    """Exact: on tie-heavy scores the card's top-k equals a numpy
+    lexsort, ids and value bits, so equal scores rank by ascending id."""
+    from tfidf_tpu_torch.ops import topk as T
+    rng = np.random.default_rng(doc_cap)
+    s = rng.integers(0, 3, size=(4, doc_cap)).astype(np.float32) * 0.5
+    for r in range(4):
+        s[r, rng.integers(doc_cap - chunk, doc_cap, 12)] = 2.0
+    vals, ids = T.unpack_topk(T.packed_topk_chunked(
+        torch.from_numpy(s).to(cuda), num_docs, k=10, chunk=chunk))
+    for r in range(4):
+        want_v, want_i = _ref_topk(s[r], num_docs, 10)
+        np.testing.assert_array_equal(ids[r], want_i)
+        np.testing.assert_array_equal(vals[r].view(np.int32),
+                                      want_v.view(np.int32))

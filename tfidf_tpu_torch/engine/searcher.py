@@ -244,14 +244,13 @@ class Searcher(QueryVectorizerMixin):
         with trace_phase("score"):
             if snap.is_ell:
                 scores = score_ell_batch(
-                    snap.ell_impacts, snap.ell_terms, snap.ell_live,
+                    snap.ell_impacts, snap.ell_terms, snap.ell_impacts_t,
+                    snap.ell_terms_t, snap.ell_live, snap.ell_index,
                     snap.res_tf, snap.res_term, snap.res_doc,
                     snap.doc_len, snap.df, qb,
                     snap.n_docs, snap.avgdl, snap.doc_norms,
                     use_pallas=self.use_pallas,
                     a_build=self.kernel_a_build,
-                    impacts_t=snap.ell_impacts_t,
-                    terms_t=snap.ell_terms_t, index=snap.ell_index,
                     res_plan=snap.res_plan,
                     **self.model.score_kwargs())
             else:

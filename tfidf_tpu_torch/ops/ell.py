@@ -365,22 +365,23 @@ def _rearrange_to_real(parts, index: torch.Tensor, B: int,
 
 def score_ell_impl(impacts,            # tuple of f32 [rows_cap_i, width_i]
                    terms,              # tuple of i32 [rows_cap_i, width_i]
+                   impacts_t,          # tuple of f32 [width_i, rows_cap_i]
+                   terms_t,            # tuple of i32 [width_i, rows_cap_i]
                    block_live,         # tuple of int — live rows per block
-                   doc_cap: int,
+                   index: torch.Tensor,  # i64 [doc_cap], real_index map
                    q: QueryBatch,
                    vocab_cap: int,
                    *, doc_chunk: int = 2048,
                    use_pallas: bool = False,
-                   a_build: str = "v3",
-                   impacts_t=None, terms_t=None,
-                   index: torch.Tensor | None = None) -> torch.Tensor:
+                   a_build: str = "v3") -> torch.Tensor:
     """Scoring over all blocks: ``scores [B, doc_cap]``.
 
     ``use_pallas`` routes every block inside the kernel envelope through
-    :func:`score_block_kernel` (width-major ``impacts_t``/``terms_t``, the
-    copies the snapshot builds at commit; derived here when absent); the
-    rest take the plain path. ``index`` is the snapshot's
-    :func:`real_index` map."""
+    :func:`score_block_kernel` on the width-major ``impacts_t``/``terms_t``
+    the snapshot builds once at commit; the rest take the plain path.
+    ``index`` is the snapshot's :func:`real_index` map, also built at
+    commit, so a query batch never transposes postings or touches the
+    host."""
     B = q.slots.shape[0]
     dev = q.slots.device
     slot_of, qc_ext = _compile_queries(q, vocab_cap)
@@ -390,24 +391,18 @@ def score_ell_impl(impacts,            # tuple of f32 [rows_cap_i, width_i]
     for i, (imp, term) in enumerate(zip(impacts, terms)):
         if use_pallas and _pallas_eligible(imp.shape[0], B, u_cap,
                                            a_build):
-            imp_t = (impacts_t[i] if impacts_t is not None
-                     else imp.T.contiguous())
-            term_t = (terms_t[i] if terms_t is not None
-                      else term.T.contiguous())
-            parts.append(score_block_kernel(imp_t, term_t, slot_of, qc_t,
+            parts.append(score_block_kernel(impacts_t[i], terms_t[i],
+                                            slot_of, qc_t,
                                             int(block_live[i]),
                                             a_build=a_build))
         else:
             parts.append(_score_block(imp, term, slot_of, qc_t,
                                       doc_chunk))
-    if index is None:
-        index = torch.from_numpy(real_index(
-            [imp.shape[0] for imp in impacts], block_live,
-            doc_cap)).to(dev)
     return _rearrange_to_real(parts, index, B, dev)
 
 
-def score_ell_with_residual(impacts, terms, block_live,
+def score_ell_with_residual(impacts, terms, impacts_t, terms_t,
+                            block_live, index,
                             res_tf, res_term, res_doc,  # COO residual
                             doc_len, df, q: QueryBatch,
                             n_docs, avgdl, doc_norms=None,
@@ -416,18 +411,16 @@ def score_ell_with_residual(impacts, terms, block_live,
                             res_chunk: int = 1 << 10,
                             use_pallas: bool = False,
                             a_build: str = "v3",
-                            impacts_t=None, terms_t=None, index=None,
                             res_plan: list[Segment] | None = None
                             ) -> torch.Tensor:
     """Full shard scores: blocked ELL + COO residual (overlong docs).
-    Pass ``res_tf=None`` when nothing spilled."""
-    doc_cap = doc_len.shape[0]
+    The ELL arguments are the snapshot's (``Snapshot.ell_*``). Pass
+    ``res_tf=None`` when nothing spilled."""
     vocab_cap = df.shape[0]
-    scores = score_ell_impl(impacts, terms, block_live, doc_cap,
-                            q, vocab_cap, doc_chunk=doc_chunk,
-                            use_pallas=use_pallas, a_build=a_build,
-                            impacts_t=impacts_t, terms_t=terms_t,
-                            index=index)
+    scores = score_ell_impl(impacts, terms, impacts_t, terms_t,
+                            block_live, index, q, vocab_cap,
+                            doc_chunk=doc_chunk, use_pallas=use_pallas,
+                            a_build=a_build)
     if res_tf is not None:
         slot_of, qc_ext = _compile_queries(q, vocab_cap)
         scores = scores + score_coo_compiled(
