@@ -10,7 +10,9 @@ beside it. Phases (any failure fails the run):
    ``tfidf_tpu_torch/csrc`` (one nvcc per source, started together);
 2. kernels against their plain PyTorch versions on the card, over a case
    matrix made from ``--seed``: variants v3 == v4 == plain, bitwise, and
-   identical top-10; then ``packed_topk_chunked`` on the card against a
+   identical top-10, each variant also writing into a wider tensor at an
+   unaligned column offset that must change nothing outside the block's
+   slice; then ``packed_topk_chunked`` on the card against a
    numpy lexsort on tie-heavy cases (clamped tail, signed scores, ids
    past 2^23): ids identical, values equal to the bit;
 3. the main path at the north-star size (BASELINE config 3: 1M docs,
@@ -21,7 +23,10 @@ beside it. Phases (any failure fails the run):
    the returned order held to the tie rule (scores never rise, equal
    scores in ascending row order); q/s, commit time, device memory,
    per-phase ms, and one batch's top-k against a numpy lexsort of its own
-   f32 scores; then the same for the v3 variant on its own;
+   f32 scores; then the same for the v3 variant on its own; then, on
+   that batch, each variant's real-doc scores against the plain blocks
+   through the reference's concatenate-and-gather, bitwise, and the
+   kernel, plain and library times over the main path's blocks;
 4. the text path: the five-document corpus through ``ingest_text``.
 
 Then one ``{"kernels": [...]}`` line (per kernel: launches on its path,
@@ -53,7 +58,12 @@ NS_BATCH = 512
 NS_BATCHES = 4                 # through search_batch, plus one arrays batch
 TOPK_ROWS = 64                 # main-path rows whose top-k numpy re-checks
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+# f32 instructions per second when every multiply and every add is its own
+# instruction (the kernel keeps the reference's bits: no FMA): 132 SMs x
+# 128 f32 lanes x 1.98 GHz. The data sheet's 67 TFLOP/s counts an FMA as
+# two operations and is reached only by fused multiply-adds.
+F32_UNFUSED_OPS_PER_S = 33.5e12
+F32_FMA_FLOP_PER_S = 67e12     # only for the fused-rate bound in the record
 
 # the five documents of tests/test_engine.py
 CORPUS = {
@@ -99,13 +109,17 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 # --------------------------------------------------------------------------
 
 def make_block(rng, *, rows_cap, width, n_rows, B, u_req, vocab,
-               ragged=False):
+               ragged=False, hot=0):
     """Random ELL block with DISTINCT term ids per row (position w draws
     from the class w mod width), pad rows zeroed like the real build,
-    optional within-row trailing pads, and a query batch that hits it."""
+    optional within-row trailing pads, and a query batch that hits it.
+    With ``hot`` > 0 the first ``hot`` positions of every row hold the
+    same term ids 0..hot-1 and most queries ask for two of them (many
+    rows and queries on a few slots)."""
     from tfidf_tpu_torch.ops.scoring import make_query_batch
     slots = max(vocab // width, 1)
     base = rng.integers(0, slots, size=(rows_cap, width))
+    base[:, :hot] = 0
     term = (base * width + np.arange(width)[None, :]).astype(np.int32)
     imp = rng.random((rows_cap, width), dtype=np.float32)
     if ragged:
@@ -122,9 +136,11 @@ def make_block(rng, *, rows_cap, width, n_rows, B, u_req, vocab,
         ids = rng.choice(vocab, size=k, replace=False)
         # most queries take one or two terms from live rows, so most
         # rows and queries score non-zero
-        for j in range(min(k, 1 + i % 2) if i % 4 else 0):
+        for j in range(min(k, 1 + i % 2) if i % 4 != 3 else 0):
             ids[j] = term[rng.integers(0, max(n_rows, 1)),
                           rng.integers(0, width)]
+        if hot and i % 8:
+            ids = np.concatenate([ids, rng.choice(hot, 2, replace=False)])
         ids = np.unique(ids)
         k = ids.shape[0]
         q_terms[i, :k] = ids
@@ -147,26 +163,45 @@ CASES = [
          vocab=20_000),
     dict(rows_cap=768, width=31, n_rows=600, B=64, u_req=256,
          vocab=(1 << 15) + 1, ragged=True),
-    # a batch that is not a multiple of the kernel's query tile
+    # a batch that is not a multiple of the kernel's query tile, one
+    # query, the envelope's largest batch
     dict(rows_cap=512, width=24, n_rows=500, B=3, u_req=256),
+    dict(rows_cap=512, width=16, n_rows=500, B=1, u_req=256),
+    dict(rows_cap=2048, width=32, n_rows=2000, B=2048, u_req=1024),
+    # both ends of the width ladder
+    dict(rows_cap=4096, width=8, n_rows=4000, B=64, u_req=256),
+    dict(rows_cap=1024, width=256, n_rows=1000, B=64, u_req=256,
+         ragged=True),
+    # hot slots: every row holds the same six terms, most queries ask for
+    # two of them
+    dict(rows_cap=8192, width=64, n_rows=8000, B=512, u_req=512, hot=6),
+    # the largest U_cap the kernel stages in shared memory (query tile
+    # 1), and one past it at the envelope's largest batch (weights read
+    # through L2); each case's plan must say which
+    dict(rows_cap=2048, width=24, n_rows=1900, B=64, u_req=16384),
+    dict(rows_cap=2048, width=24, n_rows=1900, B=2048, u_req=32768,
+         staged=False),
     # north-star shapes: width 128 and 64 at B=512
     dict(rows_cap=131072, width=128, n_rows=98000, B=512, u_req=512),
     dict(rows_cap=262144, width=64, n_rows=250000, B=512, u_req=512),
 ]
 
 
-def block_work(imp_t, term_t, slot_of, qc_t, n_rows):
-    """(bytes, f32 ops) one block launch needs for these inputs: live
-    postings read once, slot_of and qc_t read once, scores written once;
-    two ops (multiply, add) per query per posting that hits a query
-    term."""
-    W, rows_cap = imp_t.shape
-    u1, B = qc_t.shape
-    live_terms = term_t[:, :n_rows].long()
-    hits = int((slot_of[live_terms] != u1 - 1).sum())
-    nbytes = (8 * W * n_rows + 4 * slot_of.numel() + 4 * u1 * B
-              + 4 * B * rows_cap)
-    return nbytes, 2 * B * hits
+def block_work(imp_t, term_t, slot_of, qnnz, B, n_rows):
+    """(bytes, f32 ops, dense f32 ops) of one block's share of a batch:
+    its live rows' postings read once and their scores written once into
+    the real-doc matrix; one multiply and one add per hit (a posting with
+    a query term's slot and a non-zero impact) and query whose weight at
+    that slot is not zero (``qnnz[slot]`` of them) — the work the function
+    needs; and, beside it, one multiply and one add per hit and query of
+    the batch, which is what the kernel issues. The batch's ``slot_of``
+    and ``qc_t``, read once per batch, are the caller's."""
+    W = imp_t.shape[0]
+    s = slot_of[term_t[:, :n_rows].long()].long()
+    hit = imp_t[:, :n_rows] != 0
+    ops = 2 * int(torch.where(hit, qnnz[s], 0).sum())
+    dense = 2 * B * int((hit & (s != qnnz.shape[0] - 1)).sum())
+    return 8 * W * n_rows + 4 * B * n_rows, ops, dense
 
 
 def library_operand(imp_t, term_t, slot_of, u1, n_rows):
@@ -182,27 +217,46 @@ def library_operand(imp_t, term_t, slot_of, u1, n_rows):
     return A.to_sparse_csr()
 
 
+def slice_write_ok(E, args, n_rows, plain, a, row0) -> bool:
+    """One variant writing the block into a larger sentinel-filled tensor
+    at column ``row0``: its live rows equal the plain version's bit for
+    bit, and every column outside the slice keeps the sentinel."""
+    B = plain.shape[0]
+    big = torch.full((B, row0 + n_rows + 45), -7.0, device="cuda")
+    E.score_block_kernel(*args, n_rows, a_build=a, out=big, row0=row0)
+    sync()
+    return (torch.equal(big[:, row0:row0 + n_rows], plain[:, :n_rows])
+            and bool((big[:, :row0] == -7.0).all())
+            and bool((big[:, row0 + n_rows:] == -7.0).all()))
+
+
 def kernel_cases(seed: int) -> dict:
     """Phase 2: every case, both variants and the plain version on the
-    same inputs. Bitwise equality is required; top-10 must match."""
+    same inputs, each variant twice: into its own ``[B, rows_cap]``
+    output, and into a wider tensor at an odd column offset (not 16-byte
+    aligned, as a block's row0 in the real-doc scores is). Bitwise
+    equality is required; top-10 must match."""
     from tfidf_tpu_torch.ops import ell as E
     from tfidf_tpu_torch.ops.scoring import _compile_queries
     rng = np.random.default_rng(seed)
     worst = 0.0
     rows = []
     for i, case in enumerate(CASES):
-        vocab = case.get("vocab", NS_VOCAB)
-        imp, term, qb = make_block(rng, **dict(case, vocab=vocab))
+        case = dict(case, vocab=case.get("vocab", NS_VOCAB))
+        staged = case.pop("staged", True)
+        imp, term, qb = make_block(rng, **case)
         B, n_rows = case["B"], case["n_rows"]
         assert E._pallas_eligible(case["rows_cap"], B, qb.uniq.shape[0])
-        slot_of, qc_ext = _compile_queries(qb, vocab)
+        slot_of, qc_ext = _compile_queries(qb, case["vocab"])
         qc_t = qc_ext.T.contiguous()
         imp_t = torch.from_numpy(np.ascontiguousarray(imp.T)).cuda()
         term_t = torch.from_numpy(np.ascontiguousarray(term.T)).cuda()
-        outs = {a: E.score_block_kernel(imp_t, term_t, slot_of, qc_t,
-                                        n_rows, a_build=a)
+        args = (imp_t, term_t, slot_of, qc_t)
+        outs = {a: E.score_block_kernel(
+                    *args, n_rows, a_build=a,
+                    out=torch.zeros((B, case["rows_cap"]), device="cuda"))
                 for a in E.A_BUILD_VARIANTS}
-        plain = E.score_block_plain(imp_t, term_t, slot_of, qc_t, n_rows)
+        plain = E.score_block_plain(*args, n_rows)
         sync()
         v3_v4 = torch.equal(outs["v3"], outs["v4"])
         err = float((outs["v4"] - plain).abs().max())
@@ -211,17 +265,28 @@ def kernel_cases(seed: int) -> dict:
         top_same = torch.equal(
             torch.topk(outs["v4"][:, :n_rows], k).values,
             torch.topk(plain[:, :n_rows], k).values)
-        hits = int((outs["v4"] > 0).sum())
-        rows.append(dict(case=i, **case, bitwise=bitwise,
-                         max_abs_err=err, top10_identical=top_same,
-                         nonzero_scores=hits))
-        log(f"[kernel] case {i} {case}: v3==v4 {v3_v4} bitwise {bitwise} "
-            f"max|d| {err:.3e} top10 {top_same} nonzero {hits}")
-        if not (bitwise and top_same and hits > 0):
+        del outs
+        row0 = 37 + 2 * i
+        sliced = all(slice_write_ok(E, args, n_rows, plain, a, row0)
+                     for a in E.A_BUILD_VARIANTS)
+        hits = int((plain > 0).sum())
+        plan = E.kernel_plan(qc_t.shape[0], B, case["width"])
+        if plan["staged"] != staged:
+            raise SystemExit(f"kernel case {i}: plan {plan}, expected "
+                             f"staged={staged}")
+        rows.append(dict(case=i, **case, u_cap=qc_t.shape[0] - 1,
+                         bitwise=bitwise, slice_write_at=row0,
+                         slice_write_bitwise=sliced, max_abs_err=err,
+                         top10_identical=top_same, nonzero_scores=hits,
+                         plan=plan))
+        log(f"[kernel] case {i} {case} U_cap {qc_t.shape[0] - 1}: v3==v4 "
+            f"{v3_v4} bitwise {bitwise} slice@{row0} {sliced} max|d| "
+            f"{err:.3e} top10 {top_same} nonzero {hits} plan {plan}")
+        if not (bitwise and sliced and top_same and hits > 0):
             raise SystemExit(f"kernel case {i} disagrees with the plain "
                              f"version: {rows[-1]}")
         worst = max(worst, err)
-        del outs, plain
+        del plain
     return {"cases": rows, "max_abs_err": worst}
 
 
@@ -408,12 +473,6 @@ def oracle_check(corpus, queries, hits, vocab: int, doc_names) -> dict:
             "ids_identical": ranks - sum(swaps.values()), "swaps": swaps}
 
 
-def eligible_blocks(snap, B: int) -> int:
-    from tfidf_tpu_torch.ops.ell import _pallas_eligible
-    # u_cap is a power of two >= 256 for every batch, so it never decides
-    return sum(_pallas_eligible(i.shape[0], B, 256) for i in snap.ell_impacts)
-
-
 def drive(engine, queries, chunks_arrays) -> tuple:
     """The served run: one search_batch over NS_BATCHES chunks and one
     search_batch_arrays chunk. Returns (hits, arrays, seconds)."""
@@ -425,11 +484,40 @@ def drive(engine, queries, chunks_arrays) -> tuple:
     return hits, arrays, time.perf_counter() - t0
 
 
+def main_path_blocks(snap, B: int, u_cap: int) -> list:
+    """(imp_t, term_t, live rows, row0) of every block inside the kernel
+    envelope; row0 is the block's first column in the real-doc scores."""
+    from tfidf_tpu_torch.ops.ell import _pallas_eligible
+    blocks, row0 = [], 0
+    for i, imp in enumerate(snap.ell_impacts):
+        n = snap.ell_live[i]
+        if _pallas_eligible(imp.shape[0], B, u_cap):
+            blocks.append((snap.ell_impacts_t[i], snap.ell_terms_t[i], n,
+                           row0))
+        row0 += n
+    return blocks
+
+
+def launch_blocks(blocks, slot_of, qc_t, out, a_build: str) -> None:
+    """Every block through the kernel, straight into ``out``."""
+    from tfidf_tpu_torch.ops.ell import score_block_kernel
+    for imp_t, term_t, n, row0 in blocks:
+        score_block_kernel(imp_t, term_t, slot_of, qc_t, n, a_build=a_build,
+                           out=out, row0=row0)
+
+
 def phase_breakdown(engine, queries) -> tuple:
     """Per-phase ms of one batch, each phase closed by a synchronize,
     then its top-k checked against numpy on the first ``TOPK_ROWS``
-    queries; returns (ms by phase, the batch's QueryBatch, tied ranks)."""
+    queries; returns (ms by phase, the batch's QueryBatch, tied ranks).
+    The score phase is then split by running its parts on their own,
+    each closed by a synchronize: ``score.compile`` (``_compile_queries``
+    and the ``qc_t`` transpose), ``score.kernel`` (the eligible blocks'
+    launches into one real-doc tensor) and ``score.rest`` (the score
+    phase less those two: allocation, plain blocks, the zeroed tail, the
+    residual)."""
     from tfidf_tpu_torch.ops.ell import score_ell_batch
+    from tfidf_tpu_torch.ops.scoring import _compile_queries
     from tfidf_tpu_torch.ops.topk import fetch_packed, packed_topk_chunked
     s = engine.searcher
     snap = engine.index.snapshot
@@ -440,7 +528,7 @@ def phase_breakdown(engine, queries) -> tuple:
     t.append(time.perf_counter())
     scores = score_ell_batch(
         snap.ell_impacts, snap.ell_terms, snap.ell_impacts_t,
-        snap.ell_terms_t, snap.ell_live, snap.ell_index, snap.res_tf,
+        snap.ell_terms_t, snap.ell_live, snap.res_tf,
         snap.res_term, snap.res_doc, snap.doc_len, snap.df, qb,
         snap.n_docs, snap.avgdl, snap.doc_norms, use_pallas=True,
         a_build="v4", res_plan=snap.res_plan,
@@ -454,6 +542,22 @@ def phase_breakdown(engine, queries) -> tuple:
     t.append(time.perf_counter())
     names = ("vectorize", "score", "topk", "fetch")
     ms = {n: (t[i + 1] - t[i]) * 1e3 for i, n in enumerate(names)}
+
+    out = torch.empty_like(scores)
+    sync()
+    t0 = time.perf_counter()
+    slot_of, qc_ext = _compile_queries(qb, snap.df.shape[0])
+    qc_t = qc_ext.T.contiguous()
+    sync()
+    t1 = time.perf_counter()
+    launch_blocks(main_path_blocks(snap, NS_BATCH, qc_t.shape[0] - 1),
+                  slot_of, qc_t, out, "v4")
+    sync()
+    t2 = time.perf_counter()
+    del out
+    ms["score.compile"] = (t1 - t0) * 1e3
+    ms["score.kernel"] = (t2 - t1) * 1e3
+    ms["score.rest"] = ms["score"] - ms["score.compile"] - ms["score.kernel"]
     # the served top-k of this batch's own f32 scores, held to numpy
     tied = check_topk(scores[:TOPK_ROWS].cpu().numpy(), packed[:TOPK_ROWS],
                       snap.num_docs, TOP_K, "main-path topk")
@@ -464,52 +568,95 @@ def phase_breakdown(engine, queries) -> tuple:
 
 def main_path_kernel_times(engine, qb) -> dict:
     """Per-batch device times over the main path's own blocks and batch:
-    every eligible block through each variant, the plain version and one
-    library call (torch.sparse.mm of the block as CSR), plus the bound.
-    Checks kernel == plain bitwise on every block."""
+    every eligible block through each variant, straight into one
+    ``[B, doc_cap]`` real-doc tensor at its row offset; the plain version
+    and one library call (torch.sparse.mm of the block as CSR); the
+    bound. Checks first, for each variant, that ``score_ell_impl``'s
+    real-doc scores equal the plain blocks concatenated and gathered by
+    ``_rearrange_to_real`` (the reference's rearrange), bit for bit."""
     from tfidf_tpu_torch.ops import ell as E
     from tfidf_tpu_torch.ops.scoring import _compile_queries
     snap = engine.index.snapshot
-    slot_of, qc_ext = _compile_queries(qb, snap.df.shape[0])
+    vocab_cap, doc_cap = snap.df.shape[0], snap.doc_len.shape[0]
+    slot_of, qc_ext = _compile_queries(qb, vocab_cap)
     qc_t = qc_ext.T.contiguous()
     u1, B = qc_t.shape
-    blocks = [(snap.ell_impacts_t[i], snap.ell_terms_t[i], snap.ell_live[i])
-              for i, imp in enumerate(snap.ell_impacts)
-              if E._pallas_eligible(imp.shape[0], B, u1 - 1)]
-    res = {"blocks": len(blocks), "bytes": 0, "ops": 0, "max_abs_err": 0.0}
-    for imp_t, term_t, n in blocks:
-        nbytes, ops = block_work(imp_t, term_t, slot_of, qc_t, n)
+    blocks = main_path_blocks(snap, B, u1 - 1)
+
+    index = torch.from_numpy(E.real_index(
+        [i.shape[0] for i in snap.ell_impacts], snap.ell_live,
+        doc_cap)).cuda()
+    ref = E._rearrange_to_real(
+        [E.score_block_plain(it, tt, slot_of, qc_t, n) for it, tt, n in
+         zip(snap.ell_impacts_t, snap.ell_terms_t, snap.ell_live)],
+        index, B, qc_t.device)
+    for a in E.A_BUILD_VARIANTS:
+        got = E.score_ell_impl(snap.ell_impacts, snap.ell_terms,
+                               snap.ell_impacts_t, snap.ell_terms_t,
+                               snap.ell_live, doc_cap, qb, vocab_cap,
+                               use_pallas=True, a_build=a)
+        if not torch.equal(got, ref):
+            bad = [(tuple(it.shape), r0) for it, _, n, r0 in blocks
+                   if not torch.equal(got[:, r0:r0 + n], ref[:, r0:r0 + n])]
+            raise SystemExit(f"main path {a}: real-doc scores != plain "
+                             f"blocks through _rearrange_to_real (max|d| "
+                             f"{float((got - ref).abs().max())}; blocks "
+                             f"(shape, row0) that differ: {bad})")
+        del got
+    del ref, index
+
+    res = {"blocks": len(blocks), "u_cap": u1 - 1, "max_abs_err": 0.0,
+           "plans": [E.kernel_plan(u1, B, it.shape[0])
+                     for it, _, _, _ in blocks]}
+    # the bound: live postings and scores per block, slot_of and qc_t
+    # once per batch, the (hit, query) products whose weight is not zero;
+    # the record keeps beside it the time of the products the kernel
+    # issues (every query per hit) and the first slice's bound (fused
+    # rate, padded [B, rows_cap] outputs, every query per hit)
+    once = 4 * slot_of.numel() + 4 * u1 * B
+    qnnz = (qc_t != 0).sum(1)
+    res["bytes"], res["ops"], res["ops_dense"], padded = once, 0, 0, 0
+    for it, tt, n, _ in blocks:
+        nbytes, ops, dense = block_work(it, tt, slot_of, qnnz, B, n)
         res["bytes"] += nbytes
         res["ops"] += ops
-        plain = E.score_block_plain(imp_t, term_t, slot_of, qc_t, n)
-        for a in E.A_BUILD_VARIANTS:
-            out = E.score_block_kernel(imp_t, term_t, slot_of, qc_t, n,
-                                       a_build=a)
-            if not torch.equal(out, plain):
-                err = float((out - plain).abs().max())
-                raise SystemExit(f"main-path block {tuple(imp_t.shape)} "
-                                 f"{a}: kernel != plain (max|d| {err})")
-            del out
-        del plain
+        res["ops_dense"] += dense
+        padded += (8 * it.shape[0] * n + once + 4 * B * it.shape[1])
+    t_bytes = res["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = res["ops"] / F32_UNFUSED_OPS_PER_S * 1e3
+    res["bound_ms"] = max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    res["bound_bytes_ms"], res["bound_ops_ms"] = t_bytes, t_ops
+    res["dense_ops_ms"] = res["ops_dense"] / F32_UNFUSED_OPS_PER_S * 1e3
+    res["bound_fused_padded_ms"] = max(
+        padded / HBM_BYTES_PER_S,
+        res["ops_dense"] / F32_FMA_FLOP_PER_S) * 1e3
 
-    def all_blocks(fn):
-        return lambda: [fn(*blk) for blk in blocks]
-
+    out = torch.empty((B, doc_cap), dtype=torch.float32, device="cuda")
     for a in E.A_BUILD_VARIANTS:
-        res[f"{a}_ms"] = cuda_ms(all_blocks(
-            lambda it, tt, n, a=a: E.score_block_kernel(
-                it, tt, slot_of, qc_t, n, a_build=a)), reps=5)
-    res["plain_ms"] = cuda_ms(all_blocks(
-        lambda it, tt, n: E.score_block_plain(it, tt, slot_of, qc_t, n)),
-        reps=2)
-    mats = [library_operand(it, tt, slot_of, u1, n) for it, tt, n in blocks]
+        res[f"{a}_ms"] = cuda_ms(
+            lambda a=a: launch_blocks(blocks, slot_of, qc_t, out, a), reps=5)
+    # the same blocks and slots with the batch's first 32 / 128 queries:
+    # the plan (query tile 32) is the same, so the difference from the
+    # full batch is what each further tile of 32 queries costs, and what
+    # is left at 32 queries is the per-batch part (postings walk,
+    # compaction, the first tile)
+    res["v4_ms_by_queries"] = {}
+    for nq in (32, 128):
+        part = qc_t[:, :nq].contiguous()
+        res["v4_ms_by_queries"][nq] = cuda_ms(
+            lambda: launch_blocks(blocks, slot_of, part, out[:nq], "v4"),
+            reps=5)
+    res["v4_ms_by_queries"][B] = res["v4_ms"]
+    del out
+    res["plain_ms"] = cuda_ms(
+        lambda: [E.score_block_plain(it, tt, slot_of, qc_t, n)
+                 for it, tt, n, _ in blocks], reps=2)
+    mats = [library_operand(it, tt, slot_of, u1, n)
+            for it, tt, n, _ in blocks]
     res["library_ms"] = cuda_ms(
         lambda: [torch.sparse.mm(A, qc_t) for A in mats], reps=5)
     del mats
-    t_bytes = res["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = res["ops"] / F32_FLOP_PER_S * 1e3
-    res["bound_ms"] = max(t_bytes, t_ops)
-    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return res
 
 
@@ -555,7 +702,8 @@ def main_path(seed: int, n_docs: int) -> dict:
     hits, arrays, secs = drive(engine, served, arrays_q)
     counts = dict(E.launches)
     chunks = NS_BATCHES + 1
-    want = eligible_blocks(snap, NS_BATCH) * chunks
+    # u_cap is a power of two >= 256 for every batch, so it never decides
+    want = len(main_path_blocks(snap, NS_BATCH, 256)) * chunks
     qps = chunks * NS_BATCH / secs
     log(f"[main] v4 path: {chunks * NS_BATCH} queries in {secs:.3f}s = "
         f"{qps:.1f} q/s; launches {counts} (expect v4={want})")

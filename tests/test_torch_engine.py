@@ -174,23 +174,30 @@ def test_unported_modes_raise(kw, what):
         e.ingest_bytes("a.txt", b"fast food")
 
 
-@pytest.mark.parametrize("layout", ["ell", "coo"])
+@pytest.mark.parametrize("layout", ["ell", "ell_residual", "coo"])
 def test_jax_snapshot_serves_from_port_bitwise(layout):
     """The carry-across: the JAX engine's ``export_snapshot_arrays()``,
     installed in the port beside a copy of its vocabulary, serves the
     same top-10 on the CPU — with bitwise-equal scores in the ELL layout,
-    whose impacts are precomputed at commit and travel with the arrays.
-    The COO layout computes its weights per query (log1p, division), so
-    there the scores agree within rel 1e-6."""
+    whose impacts are precomputed at commit and travel with the arrays
+    (the port writes each block's rows straight into the real-doc
+    scores, the JAX package concatenates and gathers). The COO layout,
+    and the COO residual of wide docs beside the ELL blocks, compute
+    their weights per query (log1p, division), so there the scores agree
+    within rel 1e-6."""
     rtol = 0 if layout == "ell" else 1e-6
     cfg = dict(SMALL, min_doc_capacity=256, query_batch=16,
-               scoring_layout=layout)
+               scoring_layout="coo" if layout == "coo" else "ell")
+    if layout == "ell_residual":
+        cfg["ell_width_cap"] = 16
     je = JaxEngine(JaxConfig(**dict(cfg, use_pallas=False)))
     _ingest([je], _zipf_texts(7))
     arrays, names, _gen = je.index.export_snapshot_arrays()
     te = Engine(Config(**cfg), device="cpu")
     te.vocab.extend(je.vocab.all_terms())
     te.index.install_snapshot_arrays(arrays, names)
+    assert (te.index.snapshot.res_tf is not None) == (
+        layout == "ell_residual")
     queries = _zipf_queries(8)
     _assert_same_hits(te.search_batch(queries, k=10),
                       je.search_batch(queries, k=10), rtol=rtol)

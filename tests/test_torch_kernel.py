@@ -53,12 +53,14 @@ def test_plain_kernel_vs_pallas_interpret(i):
     qc_t = qc_ext.T.contiguous()
     imp_t = torch.from_numpy(np.ascontiguousarray(imp.T))
     term_t = torch.from_numpy(np.ascontiguousarray(term.T))
-    outs = {a: t_ell.score_block_kernel(imp_t, term_t, slot_t, qc_t,
-                                        n_rows, a_build=a).numpy()
+    B, rows_cap = qc_t.shape[1], imp_t.shape[1]
+    outs = {a: t_ell.score_block_kernel(
+                imp_t, term_t, slot_t, qc_t, n_rows, a_build=a,
+                out=torch.full((B, rows_cap), -7.0)).numpy()
             for a in t_ell.A_BUILD_VARIANTS}
     np.testing.assert_array_equal(outs["v3"], outs["v4"])
     got = outs["v4"]
-    assert not got[:, n_rows:].any()          # dead rows score 0
+    assert (got[:, n_rows:] == -7.0).all()    # dead rows are not written
     got = got[:, :n_rows]
     np.testing.assert_array_equal(got, xla)   # bitwise vs the XLA path
     assert np.max(np.abs(got - pallas)) < 1e-4

@@ -277,6 +277,139 @@ def test_real_index_matches_jax_rearrange():
     np.testing.assert_array_equal(got, ref)
 
 
+def _ell_layout(rng, *, width_cap, min_rows, n_docs=700, vocab=2000):
+    """A blocked-ELL layout built by the JAX package from a Zipf COO, with
+    random impacts (zero on every pad) that both packages get bit for bit.
+    ``doc_cap`` (1024) is above the live count, so the scores have a
+    tail."""
+    coo = _coo(rng, n_docs, vocab, 10, 2048, min_doc_cap=512)
+    ell = j_ell.build_ell_from_coo(coo, width_cap=width_cap,
+                                   min_rows=min_rows)
+    impacts = [np.where(b.tf > 0, 0.1 + rng.random(b.tf.shape,
+                                                   dtype=np.float32),
+                        0).astype(np.float32) for b in ell.blocks]
+    return coo, ell, impacts
+
+
+@pytest.mark.parametrize("a_build", ["v3", "v4"])
+@pytest.mark.parametrize("width_cap,min_rows", [(256, 64), (16, 128)],
+                         ids=["mixed_blocks", "residual"])
+def test_score_ell_impl_direct_writes_bitwise_vs_jax(width_cap, min_rows,
+                                                     a_build):
+    """The port writes each block's live rows straight into its column
+    slice of ``[B, doc_cap]`` (eligible blocks through the kernel
+    wrapper, its plain version here; the rest through ``_score_block``)
+    and zeroes the tail: bitwise equal to the JAX ``score_ell_impl``
+    (XLA ``_score_block``, then concatenate-and-gather) and to the
+    port's own ``_rearrange_to_real``, over padded blocks of which some
+    are inside the kernel envelope and some are not. With the COO
+    residual added the sum agrees within rel 1e-6 (the residual's
+    weights go through log1p and division on each side)."""
+    rng = np.random.default_rng(29)
+    coo, ell, impacts = _ell_layout(rng, width_cap=width_cap,
+                                    min_rows=min_rows)
+    terms = [b.term for b in ell.blocks]
+    live = [b.n_rows for b in ell.blocks]
+    caps = [i.shape[0] for i in impacts]
+    doc_cap, vocab_cap, B = coo.doc_len.shape[0], coo.df.shape[0], 16
+    eligible = [t_ell._pallas_eligible(c, B, 256) for c in caps]
+    assert any(eligible) and not all(eligible)
+    assert any(c > n for c, n in zip(caps, live)) and sum(live) < doc_cap
+    assert (ell.res_nnz > 0) == (width_cap == 16)
+    q_terms, q_weights = _queries(rng, B, 4, 2000)
+    q_terms[:, 0] = coo.term[rng.integers(0, coo.nnz, size=B)]
+    if ell.res_nnz:
+        q_terms[::2, 0] = ell.res_term[rng.integers(0, ell.res_nnz,
+                                                    size=B // 2)]
+    jq, tq = _both_batches(q_terms, q_weights)
+    jqb = j_scoring.QueryBatch(*(jnp.asarray(x) for x in jq))
+    j_blocks = (tuple(jnp.asarray(i) for i in impacts),
+                tuple(jnp.asarray(t) for t in terms),
+                jnp.asarray(np.asarray(live, np.int32)))
+    ref = np.asarray(j_ell.score_ell_impl(*j_blocks, doc_cap, jqb,
+                                          vocab_cap))
+    t_imp = tuple(_t(i) for i in impacts)
+    t_term = tuple(_t(t) for t in terms)
+    t_blocks = (t_imp, t_term, tuple(i.T.contiguous() for i in t_imp),
+                tuple(t.T.contiguous() for t in t_term), tuple(live))
+    got = t_ell.score_ell_impl(*t_blocks, doc_cap, tq, vocab_cap,
+                               use_pallas=True, a_build=a_build).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert np.count_nonzero(ref) > 0 and not ref[:, sum(live):].any()
+
+    slot_of, qc_ext = t_scoring._compile_queries(tq, vocab_cap)
+    qc_t = qc_ext.T.contiguous()
+    parts = [t_ell._score_block(i, t, slot_of, qc_t, 2048)
+             for i, t in zip(t_imp, t_term)]
+    index = torch.from_numpy(t_ell.real_index(caps, live, doc_cap))
+    np.testing.assert_array_equal(
+        t_ell._rearrange_to_real(parts, index, B, CPU).numpy(), ref)
+
+    if ell.res_nnz:
+        stats = (coo.doc_len, coo.df)
+        n_docs = np.float32(coo.num_docs)
+        avgdl = np.float32(coo.doc_len[:coo.num_docs].mean())
+        res = (ell.res_tf, ell.res_term, ell.res_doc)
+        want = np.asarray(j_ell.score_ell_with_residual(
+            *j_blocks, *(jnp.asarray(x) for x in res + stats), jqb,
+            jnp.float32(n_docs), jnp.float32(avgdl)))
+        full = t_ell.score_ell_with_residual(
+            *t_blocks, *(_t(x) for x in res + stats), tq,
+            torch.tensor(n_docs), torch.tensor(avgdl), use_pallas=True,
+            a_build=a_build).numpy()
+        np.testing.assert_allclose(full, want, rtol=1e-6, atol=1e-7)
+        assert np.count_nonzero(full - got) > 0
+
+
+def _wrapper_inputs():
+    rng = np.random.default_rng(31)
+    imp = rng.random((16, 256), dtype=np.float32)
+    term = rng.integers(0, 100, size=(16, 256)).astype(np.int32)
+    slot_of = torch.full((100,), 256, dtype=torch.int32)
+    slot_of[term[0, :5]] = torch.arange(5, dtype=torch.int32)
+    qc_t = torch.zeros((257, 8))
+    qc_t[:5] = torch.rand(5, 8, generator=torch.Generator().manual_seed(3))
+    return _t(imp), _t(term), slot_of, qc_t
+
+
+def test_kernel_wrapper_writes_only_its_slice_on_cpu():
+    """With ``out`` the block's live rows land in ``out[:, row0:row0 +
+    n_rows]`` (a column slice of a wider tensor is taken too); no other
+    column changes and no launch is counted."""
+    args = _wrapper_inputs()
+    ref = t_ell.score_block_plain(*args, 200)
+    before = dict(t_ell.launches)
+    for view, lo in ((slice(None), 37), (slice(40, None), 43)):
+        big = torch.full((8, 300), -7.0)
+        out = big[:, view]
+        assert t_ell.score_block_kernel(*args, 200, out=out,
+                                        row0=lo - (view.start or 0)) is out
+        assert torch.equal(big[:, lo:lo + 200], ref[:, :200])
+        assert (big[:, :lo] == -7.0).all()
+        assert (big[:, lo + 200:] == -7.0).all()
+    assert t_ell.launches == before
+
+
+@pytest.mark.parametrize("out,row0,match", [
+    (torch.zeros((8, 300), dtype=torch.float64), 0, "float32"),
+    (torch.zeros((300,)), 0, "2-d"),
+    (torch.zeros((4, 300)), 0, "rows"),
+    (torch.zeros((300, 8)).T, 0, "strides"),
+    (torch.zeros((8, 600))[:, ::2], 0, "strides"),
+    (torch.zeros((8, 300)), 101, "outside"),
+    (torch.zeros((8, 300)), -1, "outside"),
+    (torch.zeros((8, 300), device="meta"), 0, "out on meta"),
+], ids=["dtype", "ndim", "batch", "transposed", "strided", "past_end",
+        "negative", "device"])
+def test_kernel_wrapper_rejects_bad_out(out, row0, match):
+    """The output the kernel takes is a row-major f32 ``[B, N]`` tensor on
+    the inputs' device with the block's rows inside it; anything else
+    raises, on the CPU as on the card."""
+    with pytest.raises(ValueError, match=match):
+        t_ell.score_block_kernel(*_wrapper_inputs(), 200, out=out,
+                                 row0=row0)
+
+
 def test_kernel_wrapper_routes_cpu_to_plain_and_validates():
     """On a CPU tensor the wrapper runs the plain version and counts no
     launch; an unknown variant fails loudly."""
@@ -289,7 +422,7 @@ def test_kernel_wrapper_routes_cpu_to_plain_and_validates():
     qc_t[:5] = torch.rand(5, 8)
     before = dict(t_ell.launches)
     out = t_ell.score_block_kernel(_t(imp), _t(term), slot_of, qc_t, 200,
-                                   a_build="v4")
+                                   a_build="v4", out=torch.zeros((8, 256)))
     assert t_ell.launches == before
     ref = t_ell._score_block(_t(imp).T, _t(term).T, slot_of, qc_t, 2048)
     ref[:, 200:] = 0
@@ -297,7 +430,9 @@ def test_kernel_wrapper_routes_cpu_to_plain_and_validates():
     assert out[:, 200:].abs().sum() == 0
     with pytest.raises(ValueError, match="kernel_a_build"):
         t_ell.score_block_kernel(_t(imp), _t(term), slot_of, qc_t, 200,
-                                 a_build="v9")
+                                 a_build="v9", out=torch.zeros((8, 256)))
+    with pytest.raises(TypeError, match="out"):
+        t_ell.score_block_kernel(_t(imp), _t(term), slot_of, qc_t, 200)
 
 
 def test_eligibility_envelope_matches_jax():

@@ -32,7 +32,7 @@ from tfidf_tpu_torch.device import resolve_device
 from tfidf_tpu_torch.models.base import ScoringModel
 from tfidf_tpu_torch.ops.csr import CooShard, next_capacity
 from tfidf_tpu_torch.ops.ell import (build_ell_from_coo, cosine_norms_host,
-                                     ell_impacts, real_index)
+                                     ell_impacts)
 from tfidf_tpu_torch.ops.scoring import Segment, cosine_norms, segment_plan
 from tfidf_tpu_torch.utils.logging import get_logger
 from tfidf_tpu_torch.utils.metrics import global_metrics
@@ -114,7 +114,6 @@ class Snapshot:
     ell_impacts_t: tuple = ()
     ell_terms_t: tuple = ()
     ell_live: tuple = ()          # int live rows per block
-    ell_index: torch.Tensor | None = None   # i64 [doc_cap] real_index
     res_tf: torch.Tensor | None = None      # f32 [res_cap] (None: no spill)
     res_term: torch.Tensor | None = None    # i32 [res_cap]
     res_doc: torch.Tensor | None = None     # i32 [res_cap]
@@ -143,17 +142,15 @@ def _t(x, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _ell_fields(impacts, terms, live, doc_cap: int, res, device) -> dict:
+def _ell_fields(impacts, terms, live, res, device) -> dict:
     """Snapshot fields of the ELL layout from per-block device tensors:
-    adds the kernel's width-major copies, the real-doc gather map and the
-    residual's segment plan (all built once, here)."""
+    adds the kernel's width-major copies and the residual's segment plan
+    (both built once, here)."""
     kw: dict = dict(
         ell_impacts=tuple(impacts), ell_terms=tuple(terms),
         ell_impacts_t=tuple(i.T.contiguous() for i in impacts),
         ell_terms_t=tuple(t.T.contiguous() for t in terms),
-        ell_live=tuple(int(n) for n in live),
-        ell_index=torch.from_numpy(real_index(
-            [i.shape[0] for i in impacts], live, doc_cap)).to(device))
+        ell_live=tuple(int(n) for n in live))
     if res is not None:
         res_tf, res_term, res_doc = res
         res_nnz = int(np.count_nonzero(res_tf))
@@ -400,8 +397,7 @@ class ShardIndex:
             tf = term = doc = None
             res = ((ell.res_tf, ell.res_term, ell.res_doc)
                    if ell.res_nnz else None)
-            layout_kw = _ell_fields(impacts, terms, live, coo.doc_cap, res,
-                                    dev)
+            layout_kw = _ell_fields(impacts, terms, live, res, dev)
         else:
             tf = _t(coo.tf, dev)
             term = _t(coo.term, dev)
@@ -482,7 +478,6 @@ class ShardIndex:
         the arrays were built under; the doc table is not touched."""
         dev = self.device
         doc_len = _t(data["doc_len"], dev, np.float32)
-        doc_cap = doc_len.shape[0]
         tf = term = doc = None
         if "n_blocks" in data:
             nb = int(data["n_blocks"])
@@ -493,7 +488,7 @@ class ShardIndex:
                  for i in range(nb)],
                 [_t(data[f"ell_term_{i}"], dev, np.int32)
                  for i in range(nb)],
-                np.asarray(data["ell_live"]).tolist(), doc_cap, res, dev)
+                np.asarray(data["ell_live"]).tolist(), res, dev)
         else:
             coo_doc = np.asarray(data["coo_doc"], np.int32)
             tf = _t(data["coo_tf"], dev, np.float32)

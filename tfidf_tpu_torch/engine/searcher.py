@@ -245,7 +245,7 @@ class Searcher(QueryVectorizerMixin):
             if snap.is_ell:
                 scores = score_ell_batch(
                     snap.ell_impacts, snap.ell_terms, snap.ell_impacts_t,
-                    snap.ell_terms_t, snap.ell_live, snap.ell_index,
+                    snap.ell_terms_t, snap.ell_live,
                     snap.res_tf, snap.res_term, snap.res_doc,
                     snap.doc_len, snap.df, qb,
                     snap.n_docs, snap.avgdl, snap.doc_norms,

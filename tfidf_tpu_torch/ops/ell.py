@@ -19,7 +19,9 @@ goes through :func:`score_block_kernel`: on a CUDA tensor it launches
 version :func:`score_block_plain`. Both add in the pinned order of
 :func:`_lane_sum_w`, so the kernel is bit-identical to the plain path, and
 the plain path on the CPU is bit-identical to the JAX ``_score_block``
-given the same impacts.
+given the same impacts. Each block's live rows are written straight into
+their column slice of the batch's ``[B, doc_cap]`` scores
+(:func:`score_ell_impl`).
 """
 
 from __future__ import annotations
@@ -251,16 +253,36 @@ def score_block_plain(imp_t: torch.Tensor, term_t: torch.Tensor,
     return out
 
 
-def _launcher():
-    """The C entry point of ``csrc/ell_score.cu`` (built at first use),
-    with its ctypes signature: five pointers, seven ints, the stream."""
+def _lib():
+    """The library of ``csrc/ell_score.cu`` (built at first use), with the
+    ctypes signatures of its two C entry points."""
     from tfidf_tpu_torch import kernels
-    fn = kernels.load("ell_score").ell_score_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-    return fn
+    lib = kernels.load("ell_score")
+    if lib.ell_score_launch.argtypes is None:
+        lib.ell_score_launch.restype = ctypes.c_int
+        lib.ell_score_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.ell_score_plan.restype = ctypes.c_int
+        lib.ell_score_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return lib
+
+
+def kernel_plan(u1: int, B: int, width: int) -> dict:
+    """The launch plan ``csrc/ell_score.cu`` picks for ``u1 = U_cap + 1``
+    weight rows, ``B`` queries and block width ``width``: query tile, rows
+    per CTA, shared memory, hit capacity, and whether the weights are
+    staged in shared memory or read through L2 (needs the card: it reads
+    the device's shared-memory limit)."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().ell_score_plan(u1, B, width, out)
+    if err != 0:
+        raise ValueError(f"ell_score kernel takes no plan for U1={u1} "
+                         f"B={B} W={width} (CUDA error {err})")
+    plan = dict(zip(("query_tile", "rows_per_cta", "smem_bytes",
+                     "hits_cap"), list(out)[:4]))
+    plan["staged"] = bool(out[4])
+    return plan
 
 
 # launches of the CUDA kernel per variant; only the CUDA branch of
@@ -273,25 +295,51 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def _check_out(out: torch.Tensor, dev, B: int, row0: int,
+               n_rows: int) -> None:
+    """The output the kernel takes: a row-major f32 ``[B, N]`` tensor (or
+    a column slice of one) on the inputs' device, with the block's live
+    rows ``[row0, row0 + n_rows)`` inside it."""
+    if out.device != dev:
+        raise ValueError(f"score_block_kernel: out on {out.device}, "
+                         f"expected {dev}")
+    if out.dtype != torch.float32 or out.dim() != 2:
+        raise ValueError(f"score_block_kernel: out must be 2-d "
+                         f"torch.float32, got {out.dim()}-d {out.dtype}")
+    if out.shape[0] != B:
+        raise ValueError(f"score_block_kernel: out has {out.shape[0]} "
+                         f"rows, the batch {B}")
+    if out.stride(1) != 1 or out.stride(0) < max(out.shape[1], 1):
+        raise ValueError(f"score_block_kernel: out strides {out.stride()}"
+                         " are not row-major with unit column stride")
+    if row0 < 0 or row0 + n_rows > out.shape[1]:
+        raise ValueError(f"score_block_kernel: rows [{row0}, "
+                         f"{row0 + n_rows}) outside out's "
+                         f"{out.shape[1]} columns")
+
+
 def score_block_kernel(imp_t: torch.Tensor,     # f32 [W, rows_cap]
                        term_t: torch.Tensor,    # i32 [W, rows_cap]
                        slot_of: torch.Tensor,   # i32 [vocab_cap]
                        qc_t: torch.Tensor,      # f32 [U_cap+1, B]
                        n_rows: int,
-                       *, a_build: str = "v4") -> torch.Tensor:
-    """One ELL block's scores ``[B, rows_cap]`` through the hand-written
-    kernel (``csrc/ell_score.cu``), which replaces the Pallas kernel
+                       *, out: torch.Tensor,    # f32 [B, N]
+                       row0: int = 0,
+                       a_build: str = "v4") -> torch.Tensor:
+    """One ELL block's scores through the hand-written kernel
+    (``csrc/ell_score.cu``), which replaces the Pallas kernel
     ``tfidf_tpu/ops/ell.py:score_block_pallas``.
+
+    The block's live rows go straight to ``out[:, row0:row0 + n_rows]``
+    (``out`` is e.g. the batch's real-doc scores); nothing else of ``out``
+    is touched, and ``out`` is returned.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version. There is no fallback between the two."""
     check_a_build(a_build)
-    if imp_t.device.type == "cpu":
-        return score_block_plain(imp_t, term_t, slot_of, qc_t, n_rows)
-    if imp_t.device.type != "cuda":
-        raise ValueError(f"score_block_kernel: unsupported device "
-                         f"{imp_t.device}")
     dev = imp_t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"score_block_kernel: unsupported device {dev}")
     for name, t, dtype, ndim in (("imp_t", imp_t, torch.float32, 2),
                                  ("term_t", term_t, torch.int32, 2),
                                  ("slot_of", slot_of, torch.int32, 1),
@@ -317,13 +365,21 @@ def score_block_kernel(imp_t: torch.Tensor,     # f32 [W, rows_cap]
                                               u1 * B) >= 1 << 31:
         raise ValueError(f"score_block_kernel: unsupported shape W={width}"
                          f" rows_cap={rows_cap} U1={u1} B={B}")
-    fn = _launcher()
-    out = torch.empty((B, rows_cap), dtype=torch.float32, device=dev)
+    _check_out(out, dev, B, row0, n_rows)
+    if dev.type == "cpu":
+        out[:, row0:row0 + n_rows] = score_block_plain(
+            imp_t, term_t, slot_of, qc_t, n_rows)[:, :n_rows]
+        return out
+    if n_rows == 0:
+        return out
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(imp_t.data_ptr(), term_t.data_ptr(), slot_of.data_ptr(),
-                 qc_t.data_ptr(), out.data_ptr(), rows_cap, width, n_rows,
-                 slot_of.shape[0], u1, B, _A_BUILD_STEP[a_build], stream)
+        err = lib.ell_score_launch(
+            imp_t.data_ptr(), term_t.data_ptr(), slot_of.data_ptr(),
+            qc_t.data_ptr(), out.data_ptr() + 4 * row0, out.stride(0),
+            rows_cap, width, n_rows, slot_of.shape[0], u1, B,
+            _A_BUILD_STEP[a_build], stream)
     if err != 0:
         raise RuntimeError(f"ell_score kernel launch failed: CUDA error "
                            f"{err}")
@@ -338,9 +394,9 @@ def score_block_kernel(imp_t: torch.Tensor,     # f32 [W, rows_cap]
 def real_index(block_caps, block_live, doc_cap: int) -> np.ndarray:
     """Host-side gather map padded-row space -> real doc id space: real
     doc d lives in block i at padded index pad0_i + (d - row0_i); dead
-    real rows map to the explicit zero column P = sum(block_caps). Built
-    once per commit (the live counts are host data), so serving never
-    syncs on them."""
+    real rows map to the explicit zero column P = sum(block_caps). With
+    :func:`_rearrange_to_real` it is the plain reference of the direct
+    writes in :func:`score_ell_impl` (the tests hold one to the other)."""
     P = int(sum(block_caps))
     out = np.full(doc_cap, P, np.int64)
     row0 = pad0 = 0
@@ -354,7 +410,8 @@ def real_index(block_caps, block_live, doc_cap: int) -> np.ndarray:
 def _rearrange_to_real(parts, index: torch.Tensor, B: int,
                        device) -> torch.Tensor:
     """Concatenate per-block padded scores and gather them into the real
-    doc-id space ``[B, doc_cap]`` through ``index`` (:func:`real_index`)."""
+    doc-id space ``[B, doc_cap]`` through ``index`` (:func:`real_index`):
+    the JAX package's rearrange, kept as the reference."""
     if not parts:
         return torch.zeros((B, index.shape[0]), dtype=torch.float32,
                            device=device)
@@ -368,7 +425,7 @@ def score_ell_impl(impacts,            # tuple of f32 [rows_cap_i, width_i]
                    impacts_t,          # tuple of f32 [width_i, rows_cap_i]
                    terms_t,            # tuple of i32 [width_i, rows_cap_i]
                    block_live,         # tuple of int — live rows per block
-                   index: torch.Tensor,  # i64 [doc_cap], real_index map
+                   doc_cap: int,
                    q: QueryBatch,
                    vocab_cap: int,
                    *, doc_chunk: int = 2048,
@@ -376,33 +433,41 @@ def score_ell_impl(impacts,            # tuple of f32 [rows_cap_i, width_i]
                    a_build: str = "v3") -> torch.Tensor:
     """Scoring over all blocks: ``scores [B, doc_cap]``.
 
-    ``use_pallas`` routes every block inside the kernel envelope through
-    :func:`score_block_kernel` on the width-major ``impacts_t``/``terms_t``
-    the snapshot builds once at commit; the rest take the plain path.
-    ``index`` is the snapshot's :func:`real_index` map, also built at
-    commit, so a query batch never transposes postings or touches the
-    host."""
+    Block i holds the snapshot rows ``[row0_i, row0_i + live_i)``, with
+    ``row0_i`` the live rows of the blocks before it, so each block's live
+    scores go straight into that column slice of one ``[B, doc_cap]``
+    tensor, and the columns past the last live row are set to 0: the
+    result equals the JAX package's concatenate-and-gather
+    (:func:`_rearrange_to_real`) bit for bit, without the padded
+    ``[B, rows_cap]`` intermediates. ``use_pallas`` routes every block
+    inside the kernel envelope through :func:`score_block_kernel` on the
+    width-major ``impacts_t``/``terms_t`` the snapshot builds once at
+    commit; the rest take the plain path and are copied into their
+    slice."""
     B = q.slots.shape[0]
-    dev = q.slots.device
     slot_of, qc_ext = _compile_queries(q, vocab_cap)
     qc_t = qc_ext.T.contiguous()                      # [U_cap+1, B]
     u_cap = q.uniq.shape[0]
-    parts = []
+    scores = torch.empty((B, doc_cap), dtype=torch.float32,
+                         device=q.slots.device)
+    row0 = 0
     for i, (imp, term) in enumerate(zip(impacts, terms)):
+        live = int(block_live[i])
         if use_pallas and _pallas_eligible(imp.shape[0], B, u_cap,
                                            a_build):
-            parts.append(score_block_kernel(impacts_t[i], terms_t[i],
-                                            slot_of, qc_t,
-                                            int(block_live[i]),
-                                            a_build=a_build))
+            score_block_kernel(impacts_t[i], terms_t[i], slot_of, qc_t,
+                               live, a_build=a_build, out=scores,
+                               row0=row0)
         else:
-            parts.append(_score_block(imp, term, slot_of, qc_t,
-                                      doc_chunk))
-    return _rearrange_to_real(parts, index, B, dev)
+            scores[:, row0:row0 + live] = _score_block(
+                imp, term, slot_of, qc_t, doc_chunk)[:, :live]
+        row0 += live
+    scores[:, row0:] = 0.0
+    return scores
 
 
 def score_ell_with_residual(impacts, terms, impacts_t, terms_t,
-                            block_live, index,
+                            block_live,
                             res_tf, res_term, res_doc,  # COO residual
                             doc_len, df, q: QueryBatch,
                             n_docs, avgdl, doc_norms=None,
@@ -416,14 +481,15 @@ def score_ell_with_residual(impacts, terms, impacts_t, terms_t,
     """Full shard scores: blocked ELL + COO residual (overlong docs).
     The ELL arguments are the snapshot's (``Snapshot.ell_*``). Pass
     ``res_tf=None`` when nothing spilled."""
+    doc_cap = doc_len.shape[0]
     vocab_cap = df.shape[0]
     scores = score_ell_impl(impacts, terms, impacts_t, terms_t,
-                            block_live, index, q, vocab_cap,
+                            block_live, doc_cap, q, vocab_cap,
                             doc_chunk=doc_chunk, use_pallas=use_pallas,
                             a_build=a_build)
     if res_tf is not None:
         slot_of, qc_ext = _compile_queries(q, vocab_cap)
-        scores = scores + score_coo_compiled(
+        scores += score_coo_compiled(
             res_tf, res_term, res_doc, doc_len, df, slot_of, qc_ext,
             n_docs, avgdl, doc_norms, model=model, k1=k1, b=b,
             chunk=min(res_chunk, res_tf.shape[0]), plan=res_plan)
