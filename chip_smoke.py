@@ -27,7 +27,24 @@ beside it. Phases (any failure fails the run):
    that batch, each variant's real-doc scores against the plain blocks
    through the reference's concatenate-and-gather, bitwise, and the
    kernel, plain and library times over the main path's blocks;
-4. the text path: the five-document corpus through ``ingest_text``.
+4. the text path: the five-document corpus through ``ingest_text``;
+5. the worker engine at the north star, on phase 3's engine: (a)
+   ``save_checkpoint`` / ``restore_checkpoint`` into a fresh engine on the
+   card through the ``snapshot.npz`` fast path (no commit), serving the
+   same hits to the f32 bit with the expected launches; (b) the compute
+   plane: 8-query batches on the kernel path, then under an armed
+   ``score_ell:transient`` served by the host fallback bitwise equal
+   (degraded, then sick, when the device is not even tried), healed by a
+   probe, an injected OOM merged by the batch ladder, a poison rule naming
+   exactly its queries, and a real ``torch.cuda.OutOfMemoryError`` (a
+   2048-query batch under a capped allocator) through the ladder;
+6. the durable text path: 20,000 generated ASCII documents through
+   ``stage_bytes`` -> group fsync -> ``publish_staged`` (native tokenizer
+   for every one), then ``build_from_directory`` with the Python analyzer
+   in a fresh engine, identical hits on 64 queries.
+
+After every phase with nothing armed, each engine's compute health must
+be healthy with no new fault and no fallback-served request.
 
 Then one ``{"kernels": [...]}`` line (per kernel: launches on its path,
 max abs error against the plain version, kernel / plain / library ms per
@@ -41,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -566,6 +584,36 @@ def phase_breakdown(engine, queries) -> tuple:
     return ms, qb, tied
 
 
+def vectorize_split(engine, queries) -> dict:
+    """Host ms of one batch's vectorize, split into the analyzer and the
+    vocabulary lookups as served (found ids cached), and the cost of one
+    lookup per term through the native table's ``ctypes`` call against a
+    dict of the same ids."""
+    s = engine.searcher
+    t0 = time.perf_counter()
+    counts = [s.analyzer.counts(q) for q in queries]
+    t1 = time.perf_counter()
+    for c in counts:
+        s.vocab.map_counts(c, add=False)
+    t2 = time.perf_counter()
+    terms = [t for c in counts for t in c]
+    native = engine.native
+    if native is None:
+        raise SystemExit("main path: the native tokenizer did not build")
+    t3 = time.perf_counter()
+    found = [native.lookup(t, add=False) for t in terms]
+    t4 = time.perf_counter()
+    table = dict(zip(terms, found))
+    t5 = time.perf_counter()
+    for t in terms:
+        table.get(t)
+    t6 = time.perf_counter()
+    return {"analyze_ms": (t1 - t0) * 1e3, "lookup_ms": (t2 - t1) * 1e3,
+            "terms": len(terms),
+            "native_lookup_us_per_term": (t4 - t3) / len(terms) * 1e6,
+            "dict_lookup_us_per_term": (t6 - t5) / len(terms) * 1e6}
+
+
 def main_path_kernel_times(engine, qb) -> dict:
     """Per-batch device times over the main path's own blocks and batch:
     every eligible block through each variant, straight into one
@@ -670,8 +718,13 @@ def main_path(seed: int, n_docs: int) -> dict:
     offsets, ids, tfs, lengths = corpus
     log(f"[main] corpus {n_docs} docs nnz={ids.shape[0]} in "
         f"{time.perf_counter() - t0:.1f}s")
+    # compute-plane knobs for phase 5: sick after 3 faults, no probe
+    # until the phase shortens the interval, an OOM ladder down to 2
     engine = Engine(Config(query_batch=NS_BATCH, embedding_enabled=False,
-                           use_pallas=True, kernel_a_build="v4"))
+                           use_pallas=True, kernel_a_build="v4",
+                           compute_sick_after=3,
+                           compute_probe_interval_s=3600.0,
+                           oom_backoff_min_batch=2))
     assert engine.device.type == "cuda"
     engine.vocab.extend(f"t{i}" for i in range(NS_VOCAB))
     t0 = time.perf_counter()
@@ -685,8 +738,11 @@ def main_path(seed: int, n_docs: int) -> dict:
     commit_s = time.perf_counter() - t0
     snap = engine.index.snapshot
     shapes = [tuple(i.shape) for i in snap.ell_impacts]
-    log(f"[main] bulk load {load_s:.1f}s, commit {commit_s:.1f}s, "
-        f"blocks {shapes}, residual {snap.res_tf is not None}")
+    mirror = engine._fallback.mirror_stats()
+    log(f"[main] bulk load {load_s:.1f}s, commit {commit_s:.1f}s (of it "
+        f"the fallback mirror's fetch {mirror['build_s']:.2f}s, "
+        f"{mirror['host_bytes']} host bytes), blocks {shapes}, residual "
+        f"{snap.res_tf is not None}")
 
     queries = make_queries(rng, NS_VOCAB, NS_BATCH * (NS_BATCHES + 3))
     warm = queries[:NS_BATCH]
@@ -735,15 +791,24 @@ def main_path(seed: int, n_docs: int) -> dict:
 
     breakdown, qb, tied = phase_breakdown(engine, extra)
     log(f"[main] per-phase ms (one batch, synchronized): {breakdown}")
+    vsplit = vectorize_split(engine, extra)
+    log(f"[main] vectorize split (host): {vsplit}")
     ktimes = main_path_kernel_times(engine, qb)
     log(f"[main] per-batch kernel times: {ktimes}")
-    return {"docs": n_docs, "nnz": int(ids.shape[0]), "blocks": shapes,
-            "bulk_load_s": load_s, "commit_s": commit_s, "qps_v4": qps,
-            "qps_v3": chunks * NS_BATCH / secs_v3,
-            "launches": {"v4": counts["v4"], "v3": counts_v3["v3"]},
-            "expected_launches": want, "memory": mem,
-            "phase_ms": breakdown, "oracle": oracle,
-            "topk_tied_ranks": tied, "kernel": ktimes}
+    check_clean(engine, "main path")
+    res = {"docs": n_docs, "nnz": int(ids.shape[0]), "blocks": shapes,
+           "bulk_load_s": load_s, "commit_s": commit_s, "qps_v4": qps,
+           "qps_v3": chunks * NS_BATCH / secs_v3,
+           "launches": {"v4": counts["v4"], "v3": counts_v3["v3"]},
+           "expected_launches": want, "memory": mem,
+           "fallback_mirror": mirror,
+           "phase_ms": breakdown, "vectorize_split": vsplit,
+           "oracle": oracle,
+           "topk_tied_ranks": tied, "kernel": ktimes}
+    ctx = {"engine": engine, "served": served, "arrays_q": arrays_q,
+           "hits": hits, "arrays": arrays, "want": want,
+           "queries": queries}
+    return res, ctx
 
 
 def text_path() -> dict:
@@ -761,6 +826,7 @@ def text_path() -> dict:
         E.reset_launches()
         hits = e.search("fast food", k=5)
         launched = E.launches["v4"]
+        check_clean(e, "text path")
     names = [h.name for h in hits]
     assert names[0] == "file1.txt" and "file2.txt" not in names, names
     assert all(h.score > 0 for h in hits) and launched > 0, (hits,
@@ -785,12 +851,412 @@ def text_path() -> dict:
     return {"hits": names, "launches": launched}
 
 
+# --------------------------------------------------------------------------
+# phases 5-6: the worker engine and the durable text path
+# --------------------------------------------------------------------------
+
+def metric(name: str) -> float:
+    from tfidf_tpu_torch.utils.metrics import global_metrics
+    return global_metrics.get(name)
+
+
+_FALLBACK_SERVED = [0.0]   # compute_fallback_served after the last check
+
+
+def check_clean(engine, what: str, faults: int = 0) -> None:
+    """With nothing armed: the engine is healthy with ``faults`` faults
+    in all, and no request was served by the fallback since the last
+    check."""
+    from tfidf_tpu_torch.utils.device_nemesis import global_device_nemesis
+    st = engine.compute_stats()
+    served = metric("compute_fallback_served")
+    if (global_device_nemesis.armed or st["state"] != "healthy"
+            or st["total_faults"] != faults
+            or served != _FALLBACK_SERVED[0]):
+        raise SystemExit(f"{what}: unarmed engine not clean: {st}, "
+                         f"fallback served {served} (was "
+                         f"{_FALLBACK_SERVED[0]})")
+    log(f"[clean] {what}: healthy, {faults} faults, fallback served "
+        f"{served:.0f}")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_phase(ctx, main_res, work: str) -> dict:
+    """Phase 5a: save the 1M-doc engine, restore it into a fresh engine
+    on the card (the snapshot.npz fast path, no commit), serve the same
+    queries: hits identical (names and f32 bits), launches as expected."""
+    from tfidf_tpu_torch.engine.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from tfidf_tpu_torch.ops import ell as E
+    from tfidf_tpu_torch.utils.metrics import global_metrics
+    engine = ctx["engine"]
+    ckpt = os.path.join(work, "ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(engine, ckpt)
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(os.path.realpath(ckpt))
+    installs = metric("checkpoint_snapshot_installs")
+    sync()
+    t0 = time.perf_counter()
+    restored, meta = restore_checkpoint(ckpt, engine.config)
+    sync()
+    load_s = time.perf_counter() - t0
+    snap = global_metrics.snapshot()
+    load_parts = {k[len("phase_restore."):-len("_sum_ms")]: snap[k] / 1e3
+                  for k in snap if k.startswith("phase_restore.")
+                  and k.endswith("_sum_ms")}
+    if metric("checkpoint_snapshot_installs") != installs + 1:
+        raise SystemExit("checkpoint: the snapshot.npz fast path was not "
+                         "taken (the restore committed)")
+    if restored.device != engine.device:
+        raise SystemExit(f"checkpoint: restored on {restored.device}")
+    restored.search_batch(ctx["queries"][:NS_BATCH], k=TOP_K)   # warm
+    E.reset_launches()
+    hits, arrays, secs = drive(restored, ctx["served"], ctx["arrays_q"])
+    counts = dict(E.launches)
+    want = ctx["want"]
+    if counts != {"v4": want, "v3": 0}:
+        raise SystemExit(f"checkpoint: restored launches {counts}, "
+                         f"expected v4={want}")
+    if hits != ctx["hits"]:
+        raise SystemExit("checkpoint: restored hits differ")
+    for a, b in zip(arrays[:2], ctx["arrays"][:2]):
+        if a.tobytes() != b.tobytes():
+            raise SystemExit("checkpoint: restored arrays differ")
+    check_clean(restored, "restored engine")
+    mirror = restored._fallback.mirror_stats()
+    del restored
+    torch.cuda.empty_cache()
+    qps = (NS_BATCHES + 1) * NS_BATCH / secs
+    log(f"[ckpt] save {save_s:.2f}s, restore {load_s:.2f}s (of it, s: "
+        f"{ {k: round(v, 2) for k, v in load_parts.items()} }; commit of "
+        f"the original {main_res['commit_s']:.2f}s), {nbytes} bytes on disk; "
+        f"restored engine: hits identical to the bit, launches {counts}, "
+        f"{qps:.1f} q/s")
+    check_clean(engine, "checkpoint phase")
+    return {"save_s": save_s, "load_s": load_s, "load_parts_s": load_parts,
+            "bytes": nbytes,
+            "commit_s": main_res["commit_s"], "launches": counts,
+            "qps": qps, "meta_num_docs": meta["num_docs"],
+            "restored_mirror": mirror}
+
+
+def _same_arrays(a, b) -> bool:
+    return (a[0].tobytes() == b[0].tobytes()
+            and a[1].tobytes() == b[1].tobytes() and a[2:] == b[2:])
+
+
+def compute_phase(ctx) -> dict:
+    """Phase 5b: the compute plane on the 1M-doc engine (sick after 3
+    faults, probe interval 1 h, OOM ladder floor 2)."""
+    from tfidf_tpu_torch.ops import ell as E
+    from tfidf_tpu_torch.utils.device_nemesis import (DevicePoisonedOutput,
+                                                      global_device_nemesis)
+    nem = global_device_nemesis
+    engine = ctx["engine"]
+    snap = engine.index.snapshot
+    nblk = len(main_path_blocks(snap, 8, 256))
+    qs = ctx["queries"][-64:]
+    batches = [qs[i:i + 8] for i in range(0, 32, 8)]
+    out: dict = {"blocks_at_b8": nblk}
+
+    # R: the kernel path
+    E.reset_launches()
+    R = [engine.search_batch(b, k=TOP_K) for b in batches]
+    RA = engine.search_batch_arrays(batches[0], k=TOP_K)
+    if E.launches["v4"] != nblk * (len(batches) + 1):
+        raise SystemExit(f"compute: kernel path launches {E.launches}")
+    if engine.pop_fallback_served():
+        raise SystemExit("compute: R was served by the fallback")
+    check_clean(engine, "compute phase, R")
+
+    # a transient fault on every dispatch: fallback, degraded, sick
+    nem.script("score_ell:transient")
+    E.reset_launches()
+    states, fb_ms = [], []
+    for i in range(engine.compute.sick_after):
+        t0 = time.perf_counter()
+        got = engine.search_batch(batches[i % 4], k=TOP_K)
+        fb_ms.append((time.perf_counter() - t0) * 1e3)
+        if got != R[i % 4] or not engine.pop_fallback_served():
+            raise SystemExit(f"compute: fault {i + 1}: the fallback's "
+                             "hits differ from R or were not flagged")
+        states.append(engine.compute.state)
+    want = (["healthy"] * (engine.compute.degraded_after - 1)
+            + ["degraded"] * (engine.compute.sick_after
+                              - engine.compute.degraded_after)
+            + ["sick"])
+    if states != want:
+        raise SystemExit(f"compute: states {states}, expected {want}")
+    fired = nem.snapshot()["rules"][0]["fired"]
+    probes = engine.compute_stats()["recovery_probes"]
+    # sick: one batch of each entry point, and the device is not tried
+    t0 = time.perf_counter()
+    got = engine.search_batch(batches[3], k=TOP_K)
+    fb_ms.append((time.perf_counter() - t0) * 1e3)
+    if got != R[3] or not engine.pop_fallback_served():
+        raise SystemExit("compute: sick fallback hits differ from R")
+    t0 = time.perf_counter()
+    got_a = engine.search_batch_arrays(batches[0], k=TOP_K)
+    fb_ms.append((time.perf_counter() - t0) * 1e3)
+    if not _same_arrays(got_a, RA) or not engine.pop_fallback_served():
+        raise SystemExit("compute: sick fallback arrays differ from R")
+    if (nem.snapshot()["rules"][0]["fired"] != fired
+            or engine.compute_stats()["recovery_probes"] != probes
+            or E.launches["v4"] != 0):
+        raise SystemExit(f"compute: the device was tried while sick "
+                         f"(launches {E.launches})")
+    out["states"] = states
+    out["fallback_ms_per_batch"] = fb_ms
+    log(f"[compute] transient: states {states}, all {len(fb_ms)} batches "
+        f"from the fallback bitwise equal to the kernel path, 0 launches "
+        f"while armed; fallback ms per 8-query batch "
+        f"{[round(x, 1) for x in fb_ms]}")
+
+    # heal, shorten the probe interval, probe
+    nem.clear()
+    engine.compute.probe_interval_s = 0.0
+    E.reset_launches()
+    got = engine.search_batch(batches[0], k=TOP_K)
+    st = engine.compute_stats()
+    if (got != R[0] or engine.pop_fallback_served()
+            or st["state"] != "healthy" or st["recovery_probes"] != probes + 1
+            or E.launches["v4"] != nblk):
+        raise SystemExit(f"compute: the probe did not heal: {st}, "
+                         f"launches {E.launches}")
+    engine.compute.probe_interval_s = 3600.0
+    out["after_probe"] = st
+    log(f"[compute] healed by one probe: {st['state']}, launches "
+        f"{E.launches}")
+
+    # one injected OOM: the ladder's halves merge to R
+    steps = metric("compute_oom_backoff")
+    nem.script("score_ell:oom::count=1")
+    E.reset_launches()
+    got = engine.search_batch(batches[1], k=TOP_K)
+    nem.clear()
+    if (got != R[1] or engine.pop_fallback_served()
+            or engine.compute.state != "healthy"
+            or metric("compute_oom_backoff") != steps + 1
+            or E.launches["v4"] != 2 * nblk):
+        raise SystemExit(f"compute: injected OOM ladder: launches "
+                         f"{E.launches}, {engine.compute_stats()}")
+    log(f"[compute] injected OOM: one ladder step, two halves of 4 merged "
+        f"equal to R, launches {E.launches}")
+
+    # poison: exactly the queries of >= 3 distinct terms are named
+    bad = next((b for b in batches if 0 < sum(
+        len(set(q.split())) >= 3 for q in b) < len(b)), batches[2])
+    expect = tuple(q for q in bad if len(set(q.split())) >= 3)
+    nem.script("score_ell:poison:1.0:min_uniq=3")
+    state0 = engine.compute_stats()
+    try:
+        engine.search_batch(bad, k=TOP_K)
+        named = None
+    except DevicePoisonedOutput as e:
+        named = e.queries
+    nem.clear()
+    st = engine.compute_stats()
+    if (named != expect or engine.pop_fallback_served()
+            or st["state"] != "healthy"
+            or st["total_faults"] != state0["total_faults"]):
+        raise SystemExit(f"compute: poison named {named}, expected "
+                         f"{expect}; {st}")
+    log(f"[compute] poison: named exactly {len(expect)} of {len(bad)} "
+        f"queries, health unchanged")
+    out["poisoned"] = len(expect)
+    out["guard_ns_unarmed"] = guard_cost_ns()
+    out["real_oom"] = real_oom(engine, ctx)
+    out["mirror"] = engine._fallback.mirror_stats()
+    out["faults"] = engine.compute_stats()
+    _FALLBACK_SERVED[0] = metric("compute_fallback_served")
+    E.reset_launches()
+    if engine.search_batch(batches[2], k=TOP_K) != R[2] \
+            or E.launches["v4"] != nblk:
+        raise SystemExit("compute: unarmed batch after the phase differs")
+    check_clean(engine, "compute phase", out["faults"]["total_faults"])
+    return out
+
+
+def guard_cost_ns() -> float:
+    """Host ns of one unarmed ``device_guard`` call."""
+    from tfidf_tpu_torch.utils.device_nemesis import device_guard
+    n = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        device_guard("score_ell", batch=512, uniq=512)
+    ns = (time.perf_counter() - t0) / n * 1e9
+    log(f"[compute] unarmed guard: {ns:.1f} ns per batch")
+    return ns
+
+
+def real_oom(engine, ctx) -> dict:
+    """A real ``torch.cuda.OutOfMemoryError``: a 2048-query batch (its
+    scores alone are 8 GiB) with the allocator capped at what the engine
+    holds plus 6 GiB. The ladder's halves must merge to the same queries
+    served in 512-query chunks without the cap."""
+    qs = ctx["queries"][:2048]
+    want = engine.search_batch(qs, k=TOP_K)
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = torch.cuda.memory_reserved() + (6 << 30)
+    faults = engine.compute_stats()["faults_by_kind"].get("oom", 0)
+    steps = metric("compute_oom_backoff")
+    engine.searcher.query_batch = 2048
+    torch.cuda.set_per_process_memory_fraction(min(1.0, cap / total))
+    try:
+        got = engine.search_batch(qs, k=TOP_K)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        engine.searcher.query_batch = NS_BATCH
+    res = {"cap_bytes": cap,
+           "oom_faults": engine.compute_stats()["faults_by_kind"].get(
+               "oom", 0) - faults,
+           "ladder_steps": metric("compute_oom_backoff") - steps,
+           "fallback": engine.pop_fallback_served()}
+    if res["oom_faults"] == 0:
+        log(f"[compute] real OOM: not provoked under a {cap} byte cap "
+            f"({res})")
+        if got != want:
+            raise SystemExit("real OOM run: hits differ")
+        return res
+    if got != want or res["fallback"]:
+        raise SystemExit(f"real OOM: the ladder's merge differs or the "
+                         f"fallback served: {res}")
+    log(f"[compute] real torch.cuda.OutOfMemoryError at B=2048 under a "
+        f"{cap} byte cap: {res['oom_faults']} OOM faults, "
+        f"{res['ladder_steps']:.0f} ladder steps, merged hits identical")
+    torch.cuda.empty_cache()
+    return res
+
+
+_SYLLABLES = ("ka", "lo", "mi", "re", "tu", "sa", "ne", "po", "vi", "da",
+              "qu", "ze", "ba", "fi", "go", "hu", "ja", "we", "xi", "yo")
+
+
+def make_texts(rng, n_docs: int, n_words: int = 30_000,
+               avg_len: int = 100) -> list[str]:
+    """ASCII documents of Zipf(1.1) words over a made-up vocabulary,
+    with punctuation and capitals the analyzer has to handle."""
+    lens = rng.integers(2, 5, n_words)
+    parts = rng.integers(0, len(_SYLLABLES), (n_words, 4))
+    words = np.array(["".join(_SYLLABLES[p] for p in row[:k])
+                      for row, k in zip(parts, lens)])
+    out = []
+    for n in np.clip(rng.poisson(avg_len, n_docs), 5, None):
+        w = words[(rng.zipf(1.1, n) - 1) % n_words].tolist()
+        for i in range(0, n, 17):
+            w[i] = w[i].capitalize()
+        for i in range(0, n, 23):
+            w[i] += ","
+        out.append(" ".join(w) + ".")
+    return out
+
+
+def durable_phase(seed: int, work: str) -> dict:
+    """Phase 6: the durable upload path with the native tokenizer, then
+    a rebuild of the same documents dir through the Python analyzer."""
+    from tfidf_tpu_torch.engine.engine import Engine
+    from tfidf_tpu_torch.ops import ell as E
+    from tfidf_tpu_torch.ops.analyzer import extract_text
+    from tfidf_tpu_torch.utils import storage
+    from tfidf_tpu_torch.utils.config import Config
+    rng = np.random.default_rng(seed + 6)
+    n_docs = 20_000
+    t0 = time.perf_counter()
+    texts = make_texts(rng, n_docs)
+    names = [f"doc{i:05d}.txt" for i in range(n_docs)]
+    gen_s = time.perf_counter() - t0
+    docs_dir = os.path.join(work, "documents")
+    cfg = dict(documents_path=docs_dir, index_path=os.path.join(work, "ix"),
+               embedding_enabled=False, storage_fsync=True, query_batch=64)
+    e = Engine(Config(**cfg))
+    if e.native is None:
+        raise SystemExit("durable: the native tokenizer did not build")
+    native0 = metric("ingest_native_fast_path")
+    python0 = metric("ingest_python_fallback")
+    data = [t.encode("ascii") for t in texts]
+    # the text check and decode that staging runs first, timed alone
+    t0 = time.perf_counter()
+    for d in data:
+        extract_text(d)
+    extract_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged = [(n, *e.stage_bytes(n, d)) for n, d in zip(names, data)]
+    stage_s = time.perf_counter() - t0
+    storage.global_committer.sync([s[1] for s in staged])
+    sync_s = time.perf_counter() - t0 - stage_s
+    t1 = time.perf_counter()
+    for name, tmp, path, text in staged:
+        e.publish_staged(name, tmp, path, text)
+    publish_s = time.perf_counter() - t1
+    storage.global_committer.sync(sorted({os.path.dirname(s[2])
+                                          for s in staged}))
+    ingest_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    e.commit()
+    sync()
+    commit_s = time.perf_counter() - t0
+    native = metric("ingest_native_fast_path") - native0
+    if native != n_docs or metric("ingest_python_fallback") != python0:
+        raise SystemExit(f"durable: native path took {native} of {n_docs}")
+    words = sorted({w for t in texts[:200] for w in
+                    t.lower().replace(",", "").replace(".", "").split()})
+    queries = [" ".join(rng.choice(words, int(rng.integers(2, 4)),
+                                   replace=False)) for _ in range(64)]
+    nblk = len(main_path_blocks(e.index.snapshot, 64, 256))
+    E.reset_launches()
+    hits = e.search_batch(queries, k=TOP_K)
+    if E.launches["v4"] != nblk or nblk == 0:
+        raise SystemExit(f"durable: launches {E.launches}, expected {nblk}")
+    check_clean(e, "durable path")
+
+    fresh = Engine(Config(**dict(cfg, native_ingest=False)))
+    t0 = time.perf_counter()
+    n = fresh.build_from_directory()
+    rebuild_s = time.perf_counter() - t0
+    if n != n_docs or metric("ingest_python_fallback") - python0 != n_docs:
+        raise SystemExit(f"durable: rebuild indexed {n} of {n_docs}")
+    E.reset_launches()
+    rebuilt = fresh.search_batch(queries, k=TOP_K)
+    if E.launches["v4"] != nblk:
+        raise SystemExit(f"durable: rebuild launches {E.launches}")
+    if rebuilt != hits or not any(hits):
+        raise SystemExit("durable: rebuilt hits differ from the durable "
+                         "path's")
+    check_clean(fresh, "rebuilt engine")
+    res = {"docs": n_docs, "generate_s": gen_s, "stage_s": stage_s,
+           "extract_s": extract_s, "fsync_s": sync_s,
+           "publish_s": publish_s, "ingest_s": ingest_s,
+           "commit_s": commit_s,
+           "durable_docs_per_s": n_docs / ingest_s,
+           "rebuild_s": rebuild_s, "rebuild_docs_per_s": n_docs / rebuild_s,
+           "native_docs": native, "ranks": sum(len(h) for h in hits),
+           "launches_per_search": nblk}
+    log(f"[durable] {n_docs} docs: stage {stage_s:.2f}s (extract_text "
+        f"alone {extract_s:.2f}s), group fsync {sync_s:.2f}s, publish "
+        f"(rename, native analyze, index) {publish_s:.2f}s, durable path {res['durable_docs_per_s']:.1f} "
+        f"docs/s (commit {commit_s:.2f}s), all native; Python rebuild "
+        f"{res['rebuild_docs_per_s']:.1f} docs/s (commit included); "
+        f"{res['ranks']} ranks identical on 64 queries")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--docs", type=int, default=NS_DOCS,
                     help="corpus size (cut only if the time limit forces)")
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"))
+    ap.add_argument("--work", default=os.path.join("build",
+                                                   "chip_smoke_work"),
+                    help="scratch dir for the checkpoint and documents "
+                         "(removed at the end)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs one card",
@@ -824,9 +1290,19 @@ def main() -> int:
     cases = kernel_cases(args.seed)
     topk = topk_cases(args.seed)
     # ---- phase 3: the main path ----
-    main_res = main_path(args.seed, args.docs)
+    main_res, ctx = main_path(args.seed, args.docs)
     # ---- phase 4: the text path ----
     text = text_path()
+    # ---- phases 5-6: the worker engine, the durable text path ----
+    shutil.rmtree(args.work, ignore_errors=True)
+    os.makedirs(args.work)
+    try:
+        worker = {"checkpoint": checkpoint_phase(ctx, main_res, args.work)}
+        worker["compute"] = compute_phase(ctx)
+        del ctx
+        durable = durable_phase(args.seed, args.work)
+    finally:
+        shutil.rmtree(args.work, ignore_errors=True)
 
     kt = main_res["kernel"]
     line = {"kernels": [
@@ -843,7 +1319,8 @@ def main() -> int:
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kind": kind, "cases": cases,
                    "topk": topk,
-                   "main": main_res, "text": text,
+                   "main": main_res, "text": text, "worker": worker,
+                   "durable": durable,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

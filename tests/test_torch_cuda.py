@@ -242,3 +242,67 @@ def test_packed_topk_chunked_tie_rule_on_card(cuda, doc_cap, chunk,
         np.testing.assert_array_equal(ids[r], want_i)
         np.testing.assert_array_equal(vals[r].view(np.int32),
                                       want_v.view(np.int32))
+
+
+def _card_engine(cuda, tmp_path=None, **kw):
+    from tfidf_tpu_torch.engine.engine import Engine
+    from tfidf_tpu_torch.utils.config import Config
+    rng = np.random.default_rng(11)
+    cfg = dict(min_nnz_capacity=64, min_doc_capacity=256,
+               min_vocab_capacity=32, embedding_enabled=False,
+               query_batch=64, use_pallas=True)
+    if tmp_path is not None:
+        cfg["documents_path"] = str(tmp_path / "docs")
+    e = Engine(Config(**dict(cfg, **kw)))
+    for i in range(3000):
+        e.ingest_text(f"d{i}", " ".join(
+            f"w{t}" for t in rng.zipf(1.2, int(rng.integers(5, 120)))
+            % 5000))
+    e.commit()
+    queries = [" ".join(f"w{t}" for t in rng.zipf(1.2, int(
+        rng.integers(1, 5))) % 5000) for _ in range(200)]
+    return e, queries
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """Exact: save on the card, restore into a fresh engine on the card
+    through the snapshot.npz fast path; the same hits to the bit through
+    the kernel."""
+    from tfidf_tpu_torch.engine.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from tfidf_tpu_torch.utils.metrics import global_metrics
+    e, queries = _card_engine(cuda, tmp_path)
+    want = e.search_batch(queries, k=10)
+    save_checkpoint(e, str(tmp_path / "ckpt"))
+    installs = global_metrics.get("checkpoint_snapshot_installs")
+    r, meta = restore_checkpoint(str(tmp_path / "ckpt"), e.config)
+    assert r.device.type == "cuda" and meta["num_docs"] == 3000
+    assert global_metrics.get("checkpoint_snapshot_installs") \
+        == installs + 1
+    E.reset_launches()
+    assert r.search_batch(queries, k=10) == want
+    assert E.launches["v4"] > 0
+
+
+@pytest.mark.parametrize("a_build,kw", [
+    ("v4", {}), ("v3", {}), ("v4", {"ell_width_cap": 16}),
+    ("v4", {"scoring_layout": "coo"})],
+    ids=["v4", "v3", "v4_residual", "coo"])
+def test_host_fallback_bitwise_equal_to_kernel_path(cuda, a_build, kw):
+    """Exact: the numpy mirror (fetched at commit) returns the card's
+    scores to the bit — the kernel's blocks for both variants, the COO
+    residual and the COO layout's segmented sums."""
+    e, queries = _card_engine(cuda, kernel_a_build=a_build, **kw)
+    snap = e.index.snapshot
+    assert (snap.res_tf is not None) == ("ell_width_cap" in kw)
+    E.reset_launches()
+    dv, di, dk, dn = e.searcher.search_arrays(queries, k=10)
+    if snap.is_ell:
+        assert E.launches[a_build] > 0
+    hv, hi, hk, hn = e._fallback.search_arrays(queries, k=10)
+    assert dk == hk and list(dn) == list(hn)
+    assert dv.tobytes() == hv.tobytes()
+    np.testing.assert_array_equal(di, hi)
+    assert (dv > 0).any()
+    assert e._fallback.search(queries[:20], unbounded=True) \
+        == e.searcher.search(queries[:20], unbounded=True)

@@ -169,9 +169,11 @@ def test_engine_without_cuda_raises(monkeypatch):
 def test_unported_modes_raise(kw, what):
     with pytest.raises(NotImplementedError, match=what):
         Engine(Config(**dict(SMALL, **kw)), device="cpu")
+    # the durable upload path is ported: ingest_bytes indexes
     e = Engine(Config(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="durable upload"):
-        e.ingest_bytes("a.txt", b"fast food")
+    e.ingest_bytes("a.txt", b"fast food")
+    e.commit()
+    assert e.search("food")[0].name == "a.txt"
 
 
 @pytest.mark.parametrize("layout", ["ell", "ell_residual", "coo"])

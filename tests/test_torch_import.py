@@ -23,7 +23,14 @@ bad = sorted(k for k in sys.modules
 print("LOADED", len([k for k in sys.modules
                      if k.startswith("tfidf_tpu_torch")]))
 print("BAD", bad)
+print("HAS", " ".join(sorted(k for k in sys.modules
+                             if k.startswith("tfidf_tpu_torch."))))
 """
+
+# the worker-engine slice's modules, each of which must be in the closure
+WORKER_MODULES = ("utils.faults", "utils.storage", "utils.device_nemesis",
+                  "native", "cluster.resilience", "engine.checkpoint",
+                  "engine.compute_health")
 
 
 def test_whole_port_imports_with_jax_blocked():
@@ -33,6 +40,28 @@ def test_whole_port_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
+    loaded = set(r.stdout.split("HAS")[1].split())
+    for mod in WORKER_MODULES:
+        assert f"tfidf_tpu_torch.{mod}" in loaded, mod
+
+
+def test_worker_modules_import_with_jax_blocked():
+    """Each module of the worker-engine slice imports on its own with
+    ``jax`` blocked and loads nothing of ``tfidf_tpu``; none builds the
+    native library or a kernel at import."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module('tfidf_tpu_torch.' + m)\n"
+            "print(sorted(k for k in sys.modules "
+            "if k == 'tfidf_tpu' or k.startswith('tfidf_tpu.')))\n"
+            "import tfidf_tpu_torch.native as n\n"
+            "print(n._tried, n._lib)\n")
+    r = subprocess.run([sys.executable, "-c", code, *WORKER_MODULES],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split("\n")[:2] == ["[]", "False None"], r.stdout
 
 
 def _imported_roots(path):

@@ -271,6 +271,19 @@ class ShardIndex:
         return int(sum(d.term_ids.nbytes + d.tfs.nbytes
                        for d in self._docs if d.live))
 
+    # ---- iteration (for checkpointing) ----
+
+    def live_entries(self) -> list[DocEntry]:
+        with self._write_lock:
+            return [d for d in self._docs if d.live]
+
+    def live_entries_and_gen(self) -> tuple[list[DocEntry], int]:
+        """Entries plus the generation they were read at, atomically —
+        the token a checkpoint save uses to prove that the doc table and
+        the exported snapshot describe the same corpus."""
+        with self._write_lock:
+            return [d for d in self._docs if d.live], self._gen
+
     # ---- commit (publish an immutable snapshot) ----
 
     def _to_coo_packed(self, vocab_cap: int) -> tuple[CooShard, list[str],

@@ -25,6 +25,7 @@ from tfidf_tpu_torch.ops.scoring import (QueryBatch, make_query_batch,
                                          score_coo_batch)
 from tfidf_tpu_torch.ops.topk import (fetch_packed, full_ranking,
                                       packed_topk_chunked, unpack_topk)
+from tfidf_tpu_torch.utils.device_nemesis import DevicePoisonedOutput
 from tfidf_tpu_torch.utils.metrics import global_metrics
 from tfidf_tpu_torch.utils.tracing import trace_phase
 
@@ -32,17 +33,6 @@ from tfidf_tpu_torch.utils.tracing import trace_phase
 class SearchHit(NamedTuple):
     name: str
     score: float
-
-
-class PoisonedOutput(RuntimeError):
-    """A fetched result row holds NaN — never legitimate (scores are
-    finite by construction), so the device produced garbage for those
-    queries. Carries the offending query strings."""
-
-    def __init__(self, queries: tuple) -> None:
-        super().__init__(f"non-finite scores for {len(queries)} "
-                         f"query(ies): {list(queries)[:4]!r}")
-        self.queries = queries
 
 
 # guards lazy per-searcher PipelineExecutor construction
@@ -290,10 +280,13 @@ class Searcher(QueryVectorizerMixin):
 
     @staticmethod
     def _poison_check(queries: list[str], vals) -> None:
+        """A fetched result row holding NaN is never legitimate (scores
+        are finite by construction): the device produced garbage for
+        those queries, named in the raised fault."""
         rows = np.isnan(vals[:len(queries)]).any(axis=tuple(
             range(1, vals.ndim)))
         if rows.any():
-            raise PoisonedOutput(tuple(
+            raise DevicePoisonedOutput(tuple(
                 q for q, bad in zip(queries, rows) if bad))
 
     def _assemble(self, snap: Snapshot, queries: list[str], vals, ids,

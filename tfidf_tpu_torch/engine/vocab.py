@@ -1,9 +1,9 @@
 """Vocabulary: term string <-> dense integer id (host side).
 
-A copy of ``tfidf_tpu.engine.vocab.Vocabulary``: append-only, ids in
-first-seen order, device capacity in power-of-two buckets. The native C++
-term table (``NativeVocabulary``) is not ported yet; the JAX package
-treats the Python chain as result-identical to it.
+A copy of ``tfidf_tpu.engine.vocab``: append-only, ids in first-seen
+order, device capacity in power-of-two buckets. :class:`NativeVocabulary`
+is the same API over the native C++ term table
+(:mod:`tfidf_tpu_torch.native`), which the ingest fast path fills.
 """
 
 from __future__ import annotations
@@ -62,3 +62,55 @@ class Vocabulary:
             if tid is not None:
                 out[tid] = out.get(tid, 0) + c
         return out
+
+    def save(self, path: str) -> None:
+        # a checkpoint file: its manifest CRC and fsync happen when the
+        # checkpoint directory is published, so the write skips the fsync
+        from tfidf_tpu_torch.utils import storage
+        storage.atomic_write_bytes(
+            path, "".join(t + "\n" for t in self.all_terms()).encode(),
+            fsync=False)
+
+    def load_into(self, path: str) -> None:
+        """Append every term from a vocab file, in order (checkpoint
+        restore). Works for any backend — terms go through ``add``."""
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                self.add(line.rstrip("\n"))
+
+
+class NativeVocabulary(Vocabulary):
+    """Vocabulary view over the native C++ term table
+    (:class:`tfidf_tpu_torch.native.NativeEngine`): the ingest fast path
+    adds terms natively; this adapter keeps the Python API (queries,
+    checkpoints) on the same table."""
+
+    def __init__(self, native, min_capacity: int = 1 << 15) -> None:
+        super().__init__(min_capacity)
+        self._native = native
+        # ids of terms already looked up: the table is append-only, so a
+        # found id never changes. Query vectorization looks up every term
+        # of every query, and one ctypes round trip (lock included) costs
+        # ~10x a dict hit; misses always ask the table (the term may be
+        # ingested later).
+        self._found: dict[str, int] = {}
+
+    def __len__(self) -> int:
+        return self._native.vocab_size()
+
+    def add(self, term: str) -> int:
+        return self._native.lookup(term, add=True)
+
+    def lookup(self, term: str) -> int | None:
+        tid = self._found.get(term)
+        if tid is None:
+            tid = self._native.lookup(term, add=False)
+            if tid is not None:
+                self._found[term] = tid
+        return tid
+
+    def term(self, tid: int) -> str:
+        return self._native.term(tid)
+
+    def all_terms(self) -> list[str]:
+        return self._native.dump_terms()

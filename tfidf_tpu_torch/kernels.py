@@ -7,6 +7,12 @@ package (``TFIDF_TORCH_BUILD_DIR`` overrides), named by a hash of the
 source and flags, so an edited source is rebuilt and an unchanged one is
 reused. Nothing is built when this module is imported: the first launch
 (or an explicit :func:`build_all`) builds.
+
+A kernel that does not build or load raises :class:`KernelBuildError`,
+and one whose launch is refused raises :class:`KernelLaunchError`.
+Neither is classified as a compute fault: an ``nvcc`` failure or a bad
+launch configuration is deterministic, and absorbing it would hide the
+kernel behind the host fallback.
 """
 
 from __future__ import annotations
@@ -34,6 +40,14 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_info: dict[str, dict] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel source did not compile, or its library did not load."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's launch returned a CUDA error."""
+
+
 def build_dir() -> str:
     return os.environ.get("TFIDF_TORCH_BUILD_DIR") or os.path.join(
         os.path.dirname(_PKG_DIR), "build", "kernels")
@@ -46,7 +60,7 @@ def _nvcc() -> str:
         return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+        raise KernelBuildError("nvcc not found (set CUDA_HOME); the CUDA "
                            "kernels are built from csrc/ at first use")
     return found
 
@@ -87,7 +101,8 @@ def build_all(names=None) -> dict[str, dict]:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("kernel build failed:\n"
+                               + "\n".join(failed))
     return {n: build_info[n] for n in names}
 
 
@@ -102,6 +117,10 @@ def load(name: str) -> ctypes.CDLL:
             path = _lib_path(name)
             if not os.path.isfile(path):
                 build_all([name])
-            lib = ctypes.CDLL(path)
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelBuildError(
+                    f"kernel library {path} did not load: {e}") from e
             _libs[name] = lib
     return lib

@@ -36,6 +36,7 @@ from tfidf_tpu_torch.ops.csr import CooShard, next_capacity
 from tfidf_tpu_torch.ops.scoring import (QueryBatch, Segment,
                                          _compile_queries, bm25_weights,
                                          score_coo_compiled, tfidf_weights)
+from tfidf_tpu_torch.utils.device_nemesis import device_guard, poison_scores
 
 
 @dataclass
@@ -372,6 +373,7 @@ def score_block_kernel(imp_t: torch.Tensor,     # f32 [W, rows_cap]
         return out
     if n_rows == 0:
         return out
+    from tfidf_tpu_torch.kernels import KernelLaunchError
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -381,8 +383,8 @@ def score_block_kernel(imp_t: torch.Tensor,     # f32 [W, rows_cap]
             rows_cap, width, n_rows, slot_of.shape[0], u1, B,
             _A_BUILD_STEP[a_build], stream)
     if err != 0:
-        raise RuntimeError(f"ell_score kernel launch failed: CUDA error "
-                           f"{err}")
+        raise KernelLaunchError(f"ell_score launch returned CUDA error "
+                                f"{err}")
     launches[a_build] += 1
     return out
 
@@ -496,8 +498,22 @@ def score_ell_with_residual(impacts, terms, impacts_t, terms_t,
     return scores
 
 
-# the ELL dispatch seam (no jit here: PyTorch runs eagerly)
-score_ell_batch = score_ell_with_residual
+def score_ell_batch(impacts, terms, impacts_t, terms_t, block_live,
+                    res_tf, res_term, res_doc, doc_len, df, q: QueryBatch,
+                    n_docs, avgdl, doc_norms=None, **kw) -> torch.Tensor:
+    """The ELL dispatch seam: :func:`score_ell_with_residual` behind the
+    device nemesis guard (``device.score_ell``). Unarmed, the guard is two
+    emptiness checks per batch; armed, injected OOM / compile / transient
+    / sick faults surface here, and a fired poison rule's NaN rows enter
+    the scores on the device (detection happens at the fetch seam)."""
+    rule = device_guard("score_ell", batch=int(q.slots.shape[0]),
+                        uniq=int(q.uniq.shape[0]))
+    scores = score_ell_with_residual(
+        impacts, terms, impacts_t, terms_t, block_live, res_tf, res_term,
+        res_doc, doc_len, df, q, n_docs, avgdl, doc_norms, **kw)
+    if rule is not None:
+        scores = poison_scores(scores, q.weights, rule.min_uniq)
+    return scores
 
 
 def cosine_norms_host(coo: CooShard, n_docs: float) -> np.ndarray:

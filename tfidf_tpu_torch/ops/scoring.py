@@ -30,6 +30,7 @@ import torch
 
 from tfidf_tpu_torch.device import resolve_device
 from tfidf_tpu_torch.ops.csr import next_capacity
+from tfidf_tpu_torch.utils.device_nemesis import device_guard, poison_scores
 
 
 class QueryBatch(NamedTuple):
@@ -218,16 +219,29 @@ def score_coo_compiled(tf: torch.Tensor,      # f32 [nnz_cap]
         plan = segment_plan(d, nnz, chunk, tf.device)
     scores = torch.zeros((B, doc_cap), dtype=torch.float32,
                          device=qc_ext.device)
+    for seg, w in segment_weights(tf, term, doc, doc_len, df, n_docs,
+                                  avgdl, doc_norms, plan, model=model,
+                                  k1=k1, b=b):
+        q = qc_ext[:, slot_of[term[seg.lo:seg.hi].long()].long()]  # [B, C]
+        segment_sum_into(scores, q * w[None, :], seg)
+    return scores
+
+
+def segment_weights(tf, term, doc, doc_len, df, n_docs, avgdl, doc_norms,
+                    plan: list[Segment], *, model: str, k1: float,
+                    b: float):
+    """Per-entry model weights, one plan segment at a time: yields
+    ``(segment, w [hi - lo])``. The weights depend on no query, so the
+    host fallback (``engine/compute_health.py``) fetches exactly these
+    tensors, computed by the same ops on the same slices, once per
+    snapshot."""
     for seg in plan:
-        tf_c = tf[seg.lo:seg.hi]
         term_c = term[seg.lo:seg.hi].long()
         doc_c = doc[seg.lo:seg.hi].long()
         norm_c = doc_norms[doc_c] if doc_norms is not None else None
-        w = _entry_weights_coo(model, tf_c, df[term_c], doc_len[doc_c],
-                               norm_c, n_docs, avgdl, k1, b)
-        q = qc_ext[:, slot_of[term_c].long()]                  # [B, C]
-        segment_sum_into(scores, q * w[None, :], seg)
-    return scores
+        yield seg, _entry_weights_coo(model, tf[seg.lo:seg.hi], df[term_c],
+                                      doc_len[doc_c], norm_c, n_docs,
+                                      avgdl, k1, b)
 
 
 def score_coo_impl(tf, term, doc, doc_len, df, q: QueryBatch, n_docs,
@@ -243,8 +257,19 @@ def score_coo_impl(tf, term, doc, doc_len, df, q: QueryBatch, n_docs,
                               k1=k1, b=b, chunk=chunk, plan=plan)
 
 
-# the COO dispatch seam (no jit here: PyTorch runs eagerly)
-score_coo_batch = score_coo_impl
+def score_coo_batch(tf, term, doc, doc_len, df, q: QueryBatch, n_docs,
+                    avgdl, doc_norms=None, **kw) -> torch.Tensor:
+    """The COO dispatch seam (``device.score_coo``): :func:`score_coo_impl`
+    behind the device nemesis guard — injected compute faults surface
+    here, and a fired poison rule NaNs its target rows on the device
+    (see :mod:`tfidf_tpu_torch.utils.device_nemesis`)."""
+    rule = device_guard("score_coo", batch=int(q.slots.shape[0]),
+                        uniq=int(q.uniq.shape[0]))
+    scores = score_coo_impl(tf, term, doc, doc_len, df, q, n_docs, avgdl,
+                            doc_norms, **kw)
+    if rule is not None:
+        scores = poison_scores(scores, q.weights, rule.min_uniq)
+    return scores
 
 
 def cosine_norms(tf: torch.Tensor, term: torch.Tensor, doc: torch.Tensor,

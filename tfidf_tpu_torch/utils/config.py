@@ -560,15 +560,15 @@ class Config:
     replay_capture_max: int = 100000
 
     # --- ingest ---
-    # C++ tokenize+count+id-map fast path (tfidf_tpu/native; the torch
-    # port always ingests through the Python chain for now); falls back
-    # to the pure-Python analyzer when no compiler is available or for
+    # C++ tokenize+count+id-map fast path (tfidf_tpu_torch/native, built
+    # with g++ into build/native/ at first use); falls back to the
+    # pure-Python analyzer when no compiler is available or for
     # non-ASCII documents — results are identical either way.
     native_ingest: bool = True
 
     # --- compute-plane chaos + degradation ---
     # Gate on the /api/device-nemesis runtime-control endpoint (the
-    # scriptable device-fault injector at the JAX dispatch seams,
+    # scriptable device-fault injector at the dispatch seams,
     # utils/device_nemesis.py). The TFIDF_DEVICE_NEMESIS env var arms
     # rules regardless of this knob — this only exposes the HTTP
     # control surface, which production deployments keep off. Named
@@ -576,10 +576,10 @@ class Config:
     # collide with the rule-script variable.
     device_nemesis_api: bool = False
     # Host/numpy degraded scoring when the device faults repeatedly:
-    # exact same bits as the XLA scoring path (engine/compute_health.py
-    # mirrors the pinned-order reductions), honest latency, responses
-    # stamped X-Compute-Degraded. Off = faults surface to callers and
-    # leader failover is the only recourse.
+    # exact same bits as the device scoring path (engine/compute_health.py
+    # mirrors the pinned-order reductions; its arrays are fetched at each
+    # commit), honest latency, responses stamped X-Compute-Degraded. Off =
+    # faults surface to callers and leader failover is the only recourse.
     compute_fallback: bool = True
     # ComputeHealth state machine: consecutive device faults before the
     # worker reports "degraded" (health surface only) and before it
