@@ -16,8 +16,12 @@ beside it. Phases (any failure fails the run):
    numpy lexsort on tie-heavy cases (clamped tail, signed scores, ids
    past 2^23): ids identical, values equal to the bit;
 3. the main path at the north-star size (BASELINE config 3: 1M docs,
-   500k vocab, Zipf 1.25, avg length 120, batch 512, top-10): bulk load,
-   commit, serve batches through ``Engine.search_batch`` and
+   500k vocab, Zipf 1.25, avg length 120, batch 512, top-10) with the
+   default ``Config``'s dense plane on (dim 64, chunk 2^14): bulk load;
+   the embedding column through its bulk path (``install_arrays`` of rows
+   embedded here by a vectorized numpy copy of ``HashEmbedder``, held
+   bitwise against ``embed_counts`` on 2,000 sampled docs, then
+   ``commit``); commit; serve batches through ``Engine.search_batch`` and
    ``Engine.search_batch_arrays`` with the launch counts reset just
    before and read just after; top-10 against a scipy CSR oracle, with
    the returned order held to the tie rule (scores never rise, equal
@@ -27,21 +31,39 @@ beside it. Phases (any failure fails the run):
    that batch, each variant's real-doc scores against the plain blocks
    through the reference's concatenate-and-gather, bitwise, and the
    kernel, plain and library times over the main path's blocks;
-4. the text path: the five-document corpus through ``ingest_text``;
+3d. the dense plane at the north star: ``Engine.search_dense_batch`` at
+   batch 512, top-10, over the 1M-doc column (a warm-up, then 4 batches):
+   q/s, peak device memory, one batch's ms split (query embed, upload,
+   chunk products, chunk selections, merge, fetch) beside the bound;
+   256 queries' top-10 against a numpy f64 brute force; and, counted on 8
+   queries, the served top-k against the one-shot top-k from the same
+   chunk products (bitwise, required), against one full-column matmul and
+   another chunk size, alone (B=8) against inside the 512 batch, and run
+   twice (recorded; ids identical outside near-tie groups);
+4. the text path: the five-document corpus through ``ingest_text`` with
+   the default ``Config`` (dense plane on); sparse and dense hits against
+   inline BM25 and cosine oracles;
 5. the worker engine at the north star, on phase 3's engine: (a)
-   ``save_checkpoint`` / ``restore_checkpoint`` into a fresh engine on the
-   card through the ``snapshot.npz`` fast path (no commit), serving the
-   same hits to the f32 bit with the expected launches; (b) the compute
+   ``save_checkpoint`` / ``restore_checkpoint`` (``embeddings.npz``
+   included) into a fresh engine on the card through the
+   ``snapshot.npz`` fast path (no commit), serving the same sparse and
+   dense hits to the f32 bit with the expected launches; (b) the compute
    plane: 8-query batches on the kernel path, then under an armed
    ``score_ell:transient`` served by the host fallback bitwise equal
    (degraded, then sick, when the device is not even tried), healed by a
    probe, an injected OOM merged by the batch ladder, a poison rule naming
    exactly its queries, and a real ``torch.cuda.OutOfMemoryError`` (a
-   2048-query batch under a capped allocator) through the ladder;
+   2048-query batch under a capped allocator) through the ladder; then
+   the dense seam: ``dense:transient`` re-raises and advances health (no
+   fallback), a clean call heals it, ``dense:oom`` merges through the
+   ladder, ``dense:poison`` answers with empty hit lists as the JAX
+   package does;
 6. the durable text path: 20,000 generated ASCII documents through
    ``stage_bytes`` -> group fsync -> ``publish_staged`` (native tokenizer
-   for every one), then ``build_from_directory`` with the Python analyzer
-   in a fresh engine, identical hits on 64 queries.
+   for every one, dense plane off), then ``build_from_directory`` with
+   the dense plane on in a fresh engine (the Python analyzer; every
+   document embedded through the upsert path): identical sparse hits on
+   64 queries, and their dense top-10 against a numpy f64 brute force.
 
 After every phase with nothing armed, each engine's compute health must
 be healthy with no new fault and no fallback-served request.
@@ -428,6 +450,48 @@ def make_queries(rng, vocab: int, n: int) -> list[str]:
     return out
 
 
+def embed_corpus(corpus, embedder, vocab: int) -> np.ndarray:
+    """f32 ``[n_docs, dim]`` rows of the synthetic corpus, the numpy
+    vectorization of ``HashEmbedder.embed_counts`` over each doc's
+    ``{f"t{id}": tf}``: the slot and sign of each ``t{i}`` from the
+    embedder, one scatter-add over the COO, the same norm and f32 divide.
+    The tfs are integer counts, so every per-slot sum and every sum of
+    squares is an integer below 2^24, exact in any order and in f32 and
+    f64 alike: the bits do not depend on the scatter's order."""
+    offsets, ids, tfs, _ = corpus
+    n_docs, dim = offsets.shape[0] - 1, embedder.dim
+    slots = [embedder._token_slot(f"t{i}") for i in range(vocab)]
+    pos = np.fromiter((p for p, _ in slots), np.int64, vocab)
+    sign = np.fromiter((g for _, g in slots), np.float64, vocab)
+    doc = np.repeat(np.arange(n_docs, dtype=np.int64), np.diff(offsets))
+    acc = np.bincount(doc * dim + pos[ids], weights=sign[ids] * tfs,
+                      minlength=n_docs * dim).reshape(n_docs, dim)
+    sumsq = (acc * acc).sum(axis=1)
+    if sumsq.max() >= 1 << 24:
+        raise SystemExit("embed_corpus: sums past 2^24 are not exact")
+    rows = acc.astype(np.float32)
+    # embed_counts: math.sqrt of the f32 dot, then an in-place f32 divide
+    # (numpy casts the Python float to f32 first)
+    norm = np.sqrt(sumsq).astype(np.float32)
+    live = norm > 0
+    rows[live] /= norm[live, None]
+    return rows
+
+
+def check_embedding(rows, corpus, embedder, rng, n: int = 2000) -> int:
+    """``rows`` against ``embed_counts`` on ``n`` sampled docs, bitwise."""
+    offsets, ids, tfs, _ = corpus
+    sample = rng.choice(offsets.shape[0] - 1, size=n, replace=False)
+    for d in sample:
+        lo, hi = offsets[d], offsets[d + 1]
+        want = embedder.embed_counts(
+            {f"t{t}": float(f) for t, f in zip(ids[lo:hi], tfs[lo:hi])})
+        if want.tobytes() != rows[d].tobytes():
+            raise SystemExit(f"embedding: doc {d} differs from "
+                             f"embed_counts: {rows[d]} vs {want}")
+    return n
+
+
 def oracle_check(corpus, queries, hits, vocab: int, doc_names) -> dict:
     """Top-10 of the port against a scipy CSR oracle with independently
     computed f64 BM25 impacts. Equal scores rank by the engine's row order
@@ -719,18 +783,38 @@ def main_path(seed: int, n_docs: int) -> dict:
     log(f"[main] corpus {n_docs} docs nnz={ids.shape[0]} in "
         f"{time.perf_counter() - t0:.1f}s")
     # compute-plane knobs for phase 5: sick after 3 faults, no probe
-    # until the phase shortens the interval, an OOM ladder down to 2
-    engine = Engine(Config(query_batch=NS_BATCH, embedding_enabled=False,
-                           use_pallas=True, kernel_a_build="v4",
-                           compute_sick_after=3,
+    # until the phase shortens the interval, an OOM ladder down to 2; the
+    # dense plane at the Config defaults
+    engine = Engine(Config(query_batch=NS_BATCH, use_pallas=True,
+                           kernel_a_build="v4", compute_sick_after=3,
                            compute_probe_interval_s=3600.0,
                            oom_backoff_min_batch=2))
-    assert engine.device.type == "cuda"
+    assert engine.device.type == "cuda" and engine.dense is not None
     engine.vocab.extend(f"t{i}" for i in range(NS_VOCAB))
+    names = [f"d{i}" for i in range(n_docs)]
     t0 = time.perf_counter()
-    engine.index.bulk_load_packed([f"d{i}" for i in range(n_docs)],
-                                  offsets, ids, tfs, lengths)
+    engine.index.bulk_load_packed(names, offsets, ids, tfs, lengths)
     load_s = time.perf_counter() - t0
+    # the embedding column through its bulk path
+    dense = {}
+    t0 = time.perf_counter()
+    rows = embed_corpus(corpus, engine.dense.embedder, NS_VOCAB)
+    dense["embed_s"] = time.perf_counter() - t0
+    dense["embed_checked"] = check_embedding(
+        rows, corpus, engine.dense.embedder, np.random.default_rng(seed + 3))
+    t0 = time.perf_counter()
+    engine.dense.install_arrays(rows, names)
+    dense["install_s"] = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    engine.dense.commit()
+    sync()
+    dense["commit_s"] = time.perf_counter() - t0
+    dense["stats"] = engine.dense.stats()
+    log(f"[main] dense column: embedded {n_docs} docs in "
+        f"{dense['embed_s']:.2f}s ({dense['embed_checked']} held bitwise "
+        f"against embed_counts), install_arrays {dense['install_s']:.2f}s, "
+        f"column commit {dense['commit_s']:.2f}s, {dense['stats']}")
     sync()
     t0 = time.perf_counter()
     engine.commit()
@@ -797,7 +881,8 @@ def main_path(seed: int, n_docs: int) -> dict:
     log(f"[main] per-batch kernel times: {ktimes}")
     check_clean(engine, "main path")
     res = {"docs": n_docs, "nnz": int(ids.shape[0]), "blocks": shapes,
-           "bulk_load_s": load_s, "commit_s": commit_s, "qps_v4": qps,
+           "bulk_load_s": load_s, "commit_s": commit_s,
+           "dense_column": dense, "qps_v4": qps,
            "qps_v3": chunks * NS_BATCH / secs_v3,
            "launches": {"v4": counts["v4"], "v3": counts_v3["v3"]},
            "expected_launches": want, "memory": mem,
@@ -807,25 +892,266 @@ def main_path(seed: int, n_docs: int) -> dict:
            "topk_tied_ranks": tied, "kernel": ktimes}
     ctx = {"engine": engine, "served": served, "arrays_q": arrays_q,
            "hits": hits, "arrays": arrays, "want": want,
-           "queries": queries}
+           "queries": queries, "rows": rows}
     return res, ctx
 
 
+# --------------------------------------------------------------------------
+# phase 3d: the dense plane at the north star
+# --------------------------------------------------------------------------
+
+def dense_oracle(engine, queries, hits, rows, names) -> dict:
+    """Dense top-10 of ``queries`` against a numpy f64 brute force over
+    ``rows`` (f32 ``[n, dim]``, row i = ``names[i]``), ties in the
+    column's row order (sorted names). The served order must keep the tie
+    rule; ids identical except inside a group whose f64 scores are within
+    1e-6 (an ulp of the f32 product decides there), such swaps counted;
+    scores within 1e-6 + 1e-5 |s| of the f64 score of the doc named."""
+    slot = engine.dense._slot
+    tie = np.fromiter((slot[n] for n in names), np.int64, len(names))
+    pos = {n: i for i, n in enumerate(names)}
+    rows64 = rows.astype(np.float64)
+    emb = engine.dense.embedder
+    swaps, worst = 0, 0.0
+    for lo in range(0, len(queries), 64):
+        Q = np.stack([emb.embed_query(engine.analyzer.counts(q))
+                      for q in queries[lo:lo + 64]]).astype(np.float64)
+        S = rows64 @ Q.T
+        for j, got in enumerate(hits[lo:lo + 64]):
+            s = S[:, j]
+            k = min(TOP_K, s.shape[0])
+            kth = np.partition(s, s.shape[0] - k)[s.shape[0] - k]
+            cand = np.flatnonzero(s >= kth)
+            want = cand[np.lexsort((tie[cand], -s[cand]))][:k]
+            got_i = np.array([pos[n] for n, _ in got])
+            got_s = np.array([v for _, v in got])
+            d = np.diff(got_s)
+            if got_i.shape != want.shape or (d > 0).any() or (
+                    (d == 0) & (np.diff(tie[got_i]) <= 0)).any():
+                raise SystemExit(f"dense oracle: query {lo + j} breaks "
+                                 f"the tie rule or the count: {got}")
+            err = np.abs(got_s - s[got_i])
+            if (err > 1e-6 + 1e-5 * np.abs(s[got_i])).any():
+                raise SystemExit(f"dense oracle: query {lo + j} scores "
+                                 f"{got_s} vs f64 {s[got_i]}")
+            worst = max(worst, float(err.max()))
+            for r in np.flatnonzero(got_i != want):
+                if abs(s[got_i[r]] - s[want[r]]) > 1e-6:
+                    raise SystemExit(f"dense oracle: query {lo + j} rank "
+                                     f"{r}: {names[got_i[r]]} vs "
+                                     f"{names[want[r]]}")
+                swaps += 1
+    ranks = sum(len(h) for h in hits)
+    return {"queries": len(hits), "ranks": ranks,
+            "ids_identical": ranks - swaps, "near_tie_swaps": swaps,
+            "max_abs_err": worst}
+
+
+def compare_packed(a, b, q64, host, what: str) -> dict:
+    """Two packed top-k results of the same queries: value bits that
+    differ, and ids that differ, each allowed only inside a near-tie
+    group (f64 scores ``q64[row] . host[id]`` within 1e-6)."""
+    from tfidf_tpu_torch.ops.topk import unpack_topk
+    va, ia = unpack_topk(a)
+    vb, ib = unpack_topk(b)
+    swaps = 0
+    for r, j in zip(*np.nonzero(ia != ib)):
+        if abs(host[ia[r, j]] @ q64[r] - host[ib[r, j]] @ q64[r]) > 1e-6:
+            raise SystemExit(f"dense bits {what}: row {r} rank {j} ids "
+                             f"{ia[r, j]} vs {ib[r, j]} are no near tie")
+        swaps += 1
+    return {"values": int(va.size),
+            "value_bits_differ": int((va.view(np.int32)
+                                      != vb.view(np.int32)).sum()),
+            "ids_differ_in_near_ties": swaps}
+
+
+def dense_bits(engine, batch) -> dict:
+    """On the first 8 queries of ``batch``: the served top-k against the
+    one-shot top-k from the same chunk products (bitwise, required),
+    against one full-column matmul and against chunks of 2^12 rows; the
+    8 queries alone (B=8) against inside the 512-query batch; the batch
+    run twice (all recorded)."""
+    from tfidf_tpu_torch.ops.dense import (chunk_rows, dense_scores,
+                                           packed_dense_topk)
+    from tfidf_tpu_torch.ops.topk import fetch_packed, packed_topk
+    col = engine.dense
+    n, emb = len(col._names), col._emb_dev
+    host = emb[:n, :col.dim].cpu().numpy().astype(np.float64)
+
+    def queries(qs):
+        return torch.from_numpy(col._embed_queries(
+            [engine.analyzer.counts(q) for q in qs])).cuda()
+
+    def served(q, chunk=col._chunk):
+        return fetch_packed(packed_dense_topk(q, emb, n, k=TOP_K,
+                                              chunk=chunk))
+
+    q8, q512 = queries(batch[:8]), queries(batch)
+    q64 = q512[:, :col.dim].double().cpu().numpy()
+    mine = served(q8)
+    same = fetch_packed(packed_topk(dense_scores(
+        q8, emb, n, chunk=chunk_rows(col._doc_cap, col._chunk, TOP_K)),
+        n, k=TOP_K))
+    if mine.tobytes() != same.tobytes():
+        raise SystemExit("dense bits: the served top-k differs from the "
+                         "one-shot top-k of the same chunk products")
+    one = fetch_packed(packed_topk(torch.matmul(q8, emb.T), n, k=TOP_K))
+    big = served(q512)
+    return {"chunked_vs_oneshot_same_products": {"bitwise": True},
+            "chunked_vs_full_matmul": compare_packed(
+                mine, one, q64, host, "full matmul"),
+            "chunk_2^14_vs_2^12": compare_packed(
+                mine, served(q8, 1 << 12), q64, host, "chunk 2^12"),
+            "b8_vs_inside_b512": compare_packed(
+                mine, big[:8], q64, host, "B=8 vs B=512"),
+            "b512_twice": compare_packed(
+                big, served(q512), q64, host, "twice")}
+
+
+def dense_breakdown(engine, batch) -> dict:
+    """ms of one 512-query batch split into its parts, each closed by a
+    synchronize: query embed (host analyzer + embedder), upload, every
+    chunk's product, every chunk's selection, the merge, the fetch; then
+    the device time of the products alone and of one served top-k call
+    (CUDA events), beside the bound."""
+    from tfidf_tpu_torch.ops.dense import (chunk_bounds, chunk_product,
+                                           chunk_rows, packed_dense_topk,
+                                           select_chunk)
+    from tfidf_tpu_torch.ops.topk import merge_topk, pack_topk, unpack_topk
+    col = engine.dense
+    n, emb = len(col._names), col._emb_dev
+    c = chunk_rows(col._doc_cap, col._chunk, TOP_K)
+    bounds = chunk_bounds(col._doc_cap, c)
+    sync()
+    t = [time.perf_counter()]
+    qh = col._embed_queries([engine.analyzer.counts(q) for q in batch])
+    t.append(time.perf_counter())
+    q = torch.from_numpy(qh).cuda()
+    sync()
+    t.append(time.perf_counter())
+    parts = [chunk_product(q, emb, start, c) for _, start in bounds]
+    sync()
+    t.append(time.perf_counter())
+    sel = [select_chunk(p, start, off, n, TOP_K)
+           for p, (off, start) in zip(parts, bounds)]
+    sync()
+    t.append(time.perf_counter())
+    del parts
+    packed = pack_topk(*merge_topk(torch.stack([v for v, _ in sel]),
+                                   torch.stack([i for _, i in sel])))
+    sync()
+    t.append(time.perf_counter())
+    unpack_topk(packed)
+    t.append(time.perf_counter())
+    names = ("embed", "upload", "products", "selections", "merge", "fetch")
+    ms = {nm: (t[i + 1] - t[i]) * 1e3 for i, nm in enumerate(names)}
+    B, dim = q.shape
+    nbytes = 4 * n * col.dim + 4 * B * col.dim + 8 * B * TOP_K
+    flops = 2 * B * n * col.dim
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FMA_FLOP_PER_S * 1e3
+    return {"ms": ms, "chunks": len(bounds), "chunk_rows": c,
+            "dim_pad": dim, "doc_cap": col._doc_cap,
+            "products_event_ms": cuda_ms(
+                lambda: [chunk_product(q, emb, start, c)
+                         for _, start in bounds], reps=3),
+            "served_topk_event_ms": cuda_ms(
+                lambda: packed_dense_topk(q, emb, n, k=TOP_K,
+                                          chunk=col._chunk), reps=3),
+            "bytes": nbytes, "flops": flops,
+            "flops_issued": 2 * B * col._doc_cap * dim,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
+
+
+def device_busy(fn) -> dict:
+    """Wall ms of ``fn`` under ``torch.profiler`` and the ms its device
+    events (kernels, copies) cover: the device's busy and idle shares of
+    that call. The profiler slows the host, so this is its own run, not
+    the served one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    if not events:
+        return {"wall_ms": wall_ms, "busy_ms": "not measured"}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "device_events": len(events),
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms)}
+
+
+def dense_phase(ctx, seed: int) -> dict:
+    """Phase 3d: ``Engine.search_dense_batch`` over the 1M-doc column."""
+    engine = ctx["engine"]
+    rng = np.random.default_rng(seed + 4)
+    queries = make_queries(rng, NS_VOCAB, NS_BATCH * (NS_BATCHES + 2))
+    served = queries[NS_BATCH:(NS_BATCHES + 1) * NS_BATCH]
+    engine.search_dense_batch(queries[:NS_BATCH], k=TOP_K)      # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sync()
+    t0 = time.perf_counter()
+    hits = []
+    for lo in range(0, len(served), NS_BATCH):
+        hits += engine.search_dense_batch(served[lo:lo + NS_BATCH], k=TOP_K)
+    sync()
+    secs = time.perf_counter() - t0
+    res = {"qps": len(served) / secs, "batch_ms": secs / NS_BATCHES * 1e3,
+           "memory": {"allocated_bytes": base,
+                      "peak_allocated_bytes":
+                      torch.cuda.max_memory_allocated()}}
+    log(f"[dense] {len(served)} queries in {secs:.3f}s = {res['qps']:.1f} "
+        f"q/s ({res['batch_ms']:.2f} ms per {NS_BATCH}-query batch); memory "
+        f"{res['memory']}")
+    names = [f"d{i}" for i in range(ctx["rows"].shape[0])]
+    res["oracle"] = dense_oracle(engine, served[:256], hits[:256],
+                                 ctx["rows"], names)
+    log(f"[dense] f64 oracle top-{TOP_K} OK: {res['oracle']}")
+    res["breakdown"] = dense_breakdown(engine, queries[-NS_BATCH:])
+    log(f"[dense] one batch, synchronized: {res['breakdown']}")
+    res["bits"] = dense_bits(engine, served[:NS_BATCH])
+    log(f"[dense] bit comparisons on 8 queries: {res['bits']}")
+    res["profiled_batch"] = device_busy(
+        lambda: engine.search_dense_batch(served[:NS_BATCH], k=TOP_K))
+    log(f"[dense] one served batch under torch.profiler: "
+        f"{res['profiled_batch']}")
+    check_clean(engine, "dense plane")
+    ctx["dense_queries"] = served[:NS_BATCH]
+    ctx["dense_hits"] = hits[:NS_BATCH]
+    return res
+
+
 def text_path() -> dict:
-    """Phase 4: the five-document corpus through ingest_text on the card;
-    the JAX tests' expectations plus an inline BM25 oracle."""
+    """Phase 4: the five-document corpus through ingest_text on the card
+    with the default Config (dense plane on); the JAX tests' expectations
+    plus inline BM25 and cosine oracles."""
     from tfidf_tpu_torch.engine.engine import Engine
     from tfidf_tpu_torch.ops import ell as E
     from tfidf_tpu_torch.utils.config import Config
     with tempfile.TemporaryDirectory() as tmp:
-        e = Engine(Config(documents_path=tmp, index_path=tmp,
-                          embedding_enabled=False))
+        e = Engine(Config(documents_path=tmp, index_path=tmp))
+        assert e.dense is not None and e.dense.device.type == "cuda"
         for name, text in CORPUS.items():
             e.ingest_text(name, text)
         e.commit()
         E.reset_launches()
         hits = e.search("fast food", k=5)
         launched = E.launches["v4"]
+        dense_hits = e.search_dense_batch(["fast food"], k=5)[0]
+        doc_names = sorted(CORPUS)
+        rows = np.stack([e.dense.embedder.embed_counts(
+            e.analyzer.counts(CORPUS[n])) for n in doc_names])
+        dense = dense_oracle(e, ["fast food"], [dense_hits], rows,
+                             doc_names)
         check_clean(e, "text path")
     names = [h.name for h in hits]
     assert names[0] == "file1.txt" and "file2.txt" not in names, names
@@ -848,7 +1174,10 @@ def text_path() -> dict:
     for h in hits:
         assert abs(h.score - want[h.name]) <= 1e-5 * want[h.name], (h, want)
     log(f"[text] search('fast food') -> {[(h.name, round(h.score, 6)) for h in hits]}")
-    return {"hits": names, "launches": launched}
+    log(f"[text] search_dense_batch(['fast food']) -> {dense_hits}; "
+        f"f64 oracle {dense}")
+    return {"hits": names, "launches": launched, "dense_hits": dense_hits,
+            "dense_oracle": dense}
 
 
 # --------------------------------------------------------------------------
@@ -899,7 +1228,10 @@ def checkpoint_phase(ctx, main_res, work: str) -> dict:
     save_checkpoint(engine, ckpt)
     save_s = time.perf_counter() - t0
     nbytes = dir_bytes(os.path.realpath(ckpt))
+    emb_bytes = os.path.getsize(os.path.join(os.path.realpath(ckpt),
+                                             "embeddings.npz"))
     installs = metric("checkpoint_snapshot_installs")
+    reembeds = metric("checkpoint_dense_reembeds")
     sync()
     t0 = time.perf_counter()
     restored, meta = restore_checkpoint(ckpt, engine.config)
@@ -927,6 +1259,16 @@ def checkpoint_phase(ctx, main_res, work: str) -> dict:
     for a, b in zip(arrays[:2], ctx["arrays"][:2]):
         if a.tobytes() != b.tobytes():
             raise SystemExit("checkpoint: restored arrays differ")
+    # the embedding column: installed from embeddings.npz, not re-embedded
+    if (metric("checkpoint_dense_reembeds") != reembeds
+            or not torch.equal(restored.dense._emb_dev,
+                               engine.dense._emb_dev)
+            or restored.dense._names != engine.dense._names):
+        raise SystemExit("checkpoint: the restored embedding column "
+                         "differs or was re-embedded")
+    if restored.search_dense_batch(ctx["dense_queries"],
+                                   k=TOP_K) != ctx["dense_hits"]:
+        raise SystemExit("checkpoint: restored dense hits differ")
     check_clean(restored, "restored engine")
     mirror = restored._fallback.mirror_stats()
     del restored
@@ -934,12 +1276,13 @@ def checkpoint_phase(ctx, main_res, work: str) -> dict:
     qps = (NS_BATCHES + 1) * NS_BATCH / secs
     log(f"[ckpt] save {save_s:.2f}s, restore {load_s:.2f}s (of it, s: "
         f"{ {k: round(v, 2) for k, v in load_parts.items()} }; commit of "
-        f"the original {main_res['commit_s']:.2f}s), {nbytes} bytes on disk; "
-        f"restored engine: hits identical to the bit, launches {counts}, "
-        f"{qps:.1f} q/s")
+        f"the original {main_res['commit_s']:.2f}s), {nbytes} bytes on disk "
+        f"({emb_bytes} of them embeddings.npz); restored engine: sparse "
+        f"and dense hits identical to the bit, column equal on the card, "
+        f"launches {counts}, {qps:.1f} q/s")
     check_clean(engine, "checkpoint phase")
     return {"save_s": save_s, "load_s": load_s, "load_parts_s": load_parts,
-            "bytes": nbytes,
+            "bytes": nbytes, "embeddings_bytes": emb_bytes,
             "commit_s": main_res["commit_s"], "launches": counts,
             "qps": qps, "meta_num_docs": meta["num_docs"],
             "restored_mirror": mirror}
@@ -1069,6 +1412,7 @@ def compute_phase(ctx) -> dict:
     log(f"[compute] poison: named exactly {len(expect)} of {len(bad)} "
         f"queries, health unchanged")
     out["poisoned"] = len(expect)
+    out["dense"] = dense_faults(engine, ctx["dense_queries"][:8])
     out["guard_ns_unarmed"] = guard_cost_ns()
     out["real_oom"] = real_oom(engine, ctx)
     out["mirror"] = engine._fallback.mirror_stats()
@@ -1080,6 +1424,71 @@ def compute_phase(ctx) -> dict:
         raise SystemExit("compute: unarmed batch after the phase differs")
     check_clean(engine, "compute phase", out["faults"]["total_faults"])
     return out
+
+
+def dense_faults(engine, qs) -> dict:
+    """The dense seam under the nemesis: ``dense:transient`` re-raises
+    and advances health with no fallback (healthy, degraded, sick) and
+    the next clean call heals it; one ``dense:oom`` merges through the
+    ladder to the unsplit batch's ids; ``dense:poison`` answers with empty
+    hit lists, health unchanged, as the JAX package's column does (it
+    stops each row at its first non-finite value)."""
+    from tfidf_tpu_torch.utils.device_nemesis import (DeviceTransientError,
+                                                      global_device_nemesis)
+    nem = global_device_nemesis
+    want = engine.search_dense_batch(qs, k=TOP_K)
+    served0 = metric("compute_fallback_served")
+    faults0 = engine.compute_stats()["total_faults"]
+    nem.script("dense:transient")
+    states = []
+    for i in range(engine.compute.sick_after):
+        try:
+            engine.search_dense_batch(qs, k=TOP_K)
+            raise SystemExit("dense: an armed transient did not re-raise")
+        except DeviceTransientError:
+            states.append(engine.compute.state)
+    nem.clear()
+    expect = (["healthy"] * (engine.compute.degraded_after - 1)
+              + ["degraded"] * (engine.compute.sick_after
+                                - engine.compute.degraded_after)
+              + ["sick"])
+    if (states != expect or engine.pop_fallback_served()
+            or metric("compute_fallback_served") != served0
+            or engine.compute_stats()["total_faults"]
+            != faults0 + len(states)):
+        raise SystemExit(f"dense transient: states {states}, expected "
+                         f"{expect}; {engine.compute_stats()}")
+    if engine.search_dense_batch(qs, k=TOP_K) != want \
+            or engine.compute.state != "healthy":
+        raise SystemExit("dense: the clean call after the faults did not "
+                         "heal or differs")
+    steps = metric("compute_oom_backoff")
+    nem.script("dense:oom::count=1")
+    got = engine.search_dense_batch(qs, k=TOP_K)
+    nem.clear()
+    if ([[n for n, _ in h] for h in got] != [[n for n, _ in h]
+                                             for h in want]
+            or metric("compute_oom_backoff") != steps + 1
+            or engine.compute.state != "healthy"):
+        raise SystemExit(f"dense OOM ladder: {engine.compute_stats()}")
+    faults = engine.compute_stats()["total_faults"]
+    nem.script("dense:poison")
+    poisoned = engine.search_dense_batch(qs, k=TOP_K)
+    nem.clear()
+    if (poisoned != [[] for _ in qs]
+            or engine.compute_stats()["total_faults"] != faults
+            or engine.pop_fallback_served()
+            or metric("compute_fallback_served") != served0):
+        raise SystemExit(f"dense poison: {poisoned[:2]}, "
+                         f"{engine.compute_stats()}")
+    res = {"transient_states": states, "oom_ladder_steps": 1,
+           "oom_values_bitwise": got == want,
+           "poison_answer": "empty hit lists"}
+    log(f"[compute] dense: transient re-raised {len(states)}x ({states}), "
+        f"no fallback, healed by the next call; OOM merged by the ladder "
+        f"(ids equal, values bitwise {got == want}); poison -> empty hit "
+        f"lists, health unchanged")
+    return res
 
 
 def guard_cost_ns() -> float:
@@ -1216,10 +1625,21 @@ def durable_phase(seed: int, work: str) -> dict:
         raise SystemExit(f"durable: launches {E.launches}, expected {nblk}")
     check_clean(e, "durable path")
 
-    fresh = Engine(Config(**dict(cfg, native_ingest=False)))
+    fresh = Engine(Config(**dict(cfg, native_ingest=False,
+                                 embedding_enabled=True)))
+    # the rebuild's share spent embedding: the column's upsert, timed
+    embed_s = [0.0]
+    upsert = fresh.dense.upsert
+
+    def timed_upsert(name, counts):
+        t = time.perf_counter()
+        upsert(name, counts)
+        embed_s[0] += time.perf_counter() - t
+    fresh.dense.upsert = timed_upsert
     t0 = time.perf_counter()
     n = fresh.build_from_directory()
     rebuild_s = time.perf_counter() - t0
+    del fresh.dense.upsert
     if n != n_docs or metric("ingest_python_fallback") - python0 != n_docs:
         raise SystemExit(f"durable: rebuild indexed {n} of {n_docs}")
     E.reset_launches()
@@ -1229,6 +1649,13 @@ def durable_phase(seed: int, work: str) -> dict:
     if rebuilt != hits or not any(hits):
         raise SystemExit("durable: rebuilt hits differ from the durable "
                          "path's")
+    col = fresh.dense
+    if col.stats()["docs"] != n_docs:
+        raise SystemExit(f"durable: {col.stats()} embedded")
+    dense = dense_oracle(fresh, queries,
+                         fresh.search_dense_batch(queries, k=TOP_K),
+                         np.stack([col._vecs[nm] for nm in col._names]),
+                         col._names)
     check_clean(fresh, "rebuilt engine")
     res = {"docs": n_docs, "generate_s": gen_s, "stage_s": stage_s,
            "extract_s": extract_s, "fsync_s": sync_s,
@@ -1236,14 +1663,17 @@ def durable_phase(seed: int, work: str) -> dict:
            "commit_s": commit_s,
            "durable_docs_per_s": n_docs / ingest_s,
            "rebuild_s": rebuild_s, "rebuild_docs_per_s": n_docs / rebuild_s,
+           "rebuild_embed_s": embed_s[0],
            "native_docs": native, "ranks": sum(len(h) for h in hits),
-           "launches_per_search": nblk}
+           "launches_per_search": nblk, "rebuild_dense_oracle": dense}
     log(f"[durable] {n_docs} docs: stage {stage_s:.2f}s (extract_text "
         f"alone {extract_s:.2f}s), group fsync {sync_s:.2f}s, publish "
         f"(rename, native analyze, index) {publish_s:.2f}s, durable path {res['durable_docs_per_s']:.1f} "
         f"docs/s (commit {commit_s:.2f}s), all native; Python rebuild "
-        f"{res['rebuild_docs_per_s']:.1f} docs/s (commit included); "
-        f"{res['ranks']} ranks identical on 64 queries")
+        f"{res['rebuild_docs_per_s']:.1f} docs/s with the dense plane on "
+        f"(commit included; {embed_s[0]:.2f}s of {rebuild_s:.2f}s in the "
+        f"column's upsert); {res['ranks']} ranks identical on 64 queries; "
+        f"their dense top-{TOP_K} against the f64 oracle: {dense}")
     return res
 
 
@@ -1291,6 +1721,8 @@ def main() -> int:
     topk = topk_cases(args.seed)
     # ---- phase 3: the main path ----
     main_res, ctx = main_path(args.seed, args.docs)
+    # ---- phase 3d: the dense plane ----
+    dense = dense_phase(ctx, args.seed)
     # ---- phase 4: the text path ----
     text = text_path()
     # ---- phases 5-6: the worker engine, the durable text path ----
@@ -1319,7 +1751,8 @@ def main() -> int:
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kind": kind, "cases": cases,
                    "topk": topk,
-                   "main": main_res, "text": text, "worker": worker,
+                   "main": main_res, "dense": dense, "text": text,
+                   "worker": worker,
                    "durable": durable,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,

@@ -12,7 +12,12 @@ npz keys and score signature). Tolerances, with their reasons:
   the same lane order as the JAX XLA path, so the bits are equal. COO:
   the per-entry weights are computed per query by each package (log1p,
   division), which may differ by an ulp: ids identical, scores within
-  rel 1e-6.
+  rel 1e-6;
+* the embedding column (``embeddings.npz``): its rows travel between the
+  packages to the bit; within the port a restored column serves the same
+  dense hits to the bit, and across the packages the dense scores agree
+  within rel 1e-6 (the two matmuls pad and block their f32 sums
+  differently).
 
 The storage seam's crash-ordering cases of ``tests/test_storage.py`` run
 over both seam modules.
@@ -141,11 +146,94 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def test_default_config_refuses_the_dense_plane(tmp_path):
-    e = _port(tmp_path, _zipf_texts(25, n_docs=40))
+    """``load_checkpoint`` without a config builds ``Config()``, whose
+    dense plane is on: nothing is refused, the restored column equals the
+    saved one to the bit and serves the same dense hits."""
+    e = _port(tmp_path, _zipf_texts(25, n_docs=40), embedding_enabled=True)
     ckpt = str(tmp_path / "ckpt")
     ck.save_checkpoint(e, ckpt)
-    with pytest.raises(NotImplementedError, match="dense plane"):
-        ck.load_checkpoint(ckpt, device="cpu")
+    reembeds = global_metrics.get("checkpoint_dense_reembeds")
+    e2 = ck.load_checkpoint(ckpt, device="cpu")
+    assert e2.config.embedding_enabled and e2.dense is not None
+    assert global_metrics.get("checkpoint_dense_reembeds") == reembeds
+    rows, names = e.dense.export_arrays()
+    rows2, names2 = e2.dense.export_arrays()
+    assert names2 == names and rows2.tobytes() == rows.tobytes()
+    assert e2.search_dense_batch(QUERIES) == e.search_dense_batch(QUERIES)
+
+
+def _dense_hits_close(got, want):
+    for g, w in zip(got, want):
+        assert [n for n, _ in g] == [n for n, _ in w]
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w],
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_embeddings_cross_the_packages_both_ways(tmp_path):
+    """JAX -> port -> JAX with ``embeddings.npz``: the rows travel to the
+    bit (no re-embed on either side); the port serves the JAX column's
+    top-k (scores within rel 1e-6: the two products differ in padding and
+    blocking), and the JAX package reloads the port's save to the bit."""
+    cfg = dict(CFG, embedding_enabled=True, embedding_chunk=64)
+    je = JaxEngine(JaxConfig(**dict(cfg, use_pallas=False)))
+    for name, text in _zipf_texts(27, n_docs=150).items():
+        je.ingest_text(name, text)
+    je.commit()
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_save(je, jdir)
+    reembeds = global_metrics.get("checkpoint_dense_reembeds")
+    te = ck.load_checkpoint(jdir, Config(**cfg), device="cpu")
+    assert global_metrics.get("checkpoint_dense_reembeds") == reembeds
+    rows, names = je.dense.export_arrays()
+    assert te.dense.export_arrays()[0].tobytes() == rows.tobytes()
+    assert te.dense.export_arrays()[1] == names
+    want = je.search_dense_batch(QUERIES)
+    _dense_hits_close(te.search_dense_batch(QUERIES), want)
+    ck.save_checkpoint(te, tdir)
+    assert os.path.exists(os.path.join(_current(tdir), "embeddings.npz"))
+    je2 = jax_load(tdir, JaxConfig(**dict(cfg, use_pallas=False)))
+    assert je2.dense.export_arrays()[0].tobytes() == rows.tobytes()
+    assert je2.search_dense_batch(QUERIES) == want
+
+
+def test_embedding_signature_change_reembeds(tmp_path):
+    """A checkpoint embedded at dim 64, loaded at dim 32: every document
+    is re-embedded from ``vocab.txt`` and the term table, to the same
+    bits a fresh ingest at dim 32 gives."""
+    docs = _zipf_texts(28, n_docs=80)
+    e = _port(tmp_path, docs, embedding_enabled=True)
+    ckpt = str(tmp_path / "ckpt")
+    ck.save_checkpoint(e, ckpt)
+    reembeds = global_metrics.get("checkpoint_dense_reembeds")
+    e2 = ck.load_checkpoint(ckpt, e.config.replace(embedding_dim=32),
+                            device="cpu")
+    assert global_metrics.get("checkpoint_dense_reembeds") == reembeds + 1
+    fresh = _port(tmp_path, docs, embedding_enabled=True, embedding_dim=32)
+    assert e2.dense.export_arrays()[0].tobytes() \
+        == fresh.dense.export_arrays()[0].tobytes()
+    assert e2.search_dense_batch(QUERIES) == fresh.search_dense_batch(QUERIES)
+
+
+def test_torn_embeddings_fall_back_to_the_intact_version(tmp_path):
+    e = _port(tmp_path, _zipf_texts(29, n_docs=120), embedding_enabled=True)
+    ckpt = str(tmp_path / "ckpt")
+    ck.save_checkpoint(e, ckpt)
+    want_v1 = e.search_dense_batch(QUERIES)
+    e.ingest_text("extra.txt", "t1 t1 t2 fresh")
+    e.commit()
+    ck.save_checkpoint(e, ckpt)
+    assert e.search_dense_batch(QUERIES) != want_v1
+    p = os.path.join(_current(ckpt), "embeddings.npz")
+    with open(p, "r+b") as f:
+        f.truncate(os.path.getsize(p) // 2)
+    with pytest.raises(t_storage.StorageCorruption):
+        ck.load_checkpoint(ckpt, e.config, device="cpu")
+    e2, meta = ck.restore_checkpoint(ckpt, e.config, device="cpu")
+    assert meta["num_docs"] == 120 and meta["embedding"] == {
+        "model": "hash", "dim": 64}
+    assert e2.search_dense_batch(QUERIES) == want_v1
+    assert any(".quarantine" in d for d in os.listdir(
+        os.path.dirname(ckpt)))
 
 
 @pytest.fixture

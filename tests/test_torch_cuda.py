@@ -306,3 +306,53 @@ def test_host_fallback_bitwise_equal_to_kernel_path(cuda, a_build, kw):
     assert (dv > 0).any()
     assert e._fallback.search(queries[:20], unbounded=True) \
         == e.searcher.search(queries[:20], unbounded=True)
+
+
+def _dense_pair(cuda, num_docs=3000, dim=64, chunk=1024):
+    """The same embedding column on the card and on the CPU."""
+    from tfidf_tpu_torch.engine.dense import EmbeddingColumn
+    from tfidf_tpu_torch.engine.embedder import HashEmbedder
+    rng = np.random.default_rng(num_docs)
+    cols = [EmbeddingColumn(HashEmbedder(dim), min_doc_capacity=64,
+                            chunk=chunk, device=d) for d in (cuda, "cpu")]
+    for i in range(num_docs):
+        bag = {f"w{t}": float(c) for t, c in zip(
+            *np.unique(rng.zipf(1.3, 12) % 4000, return_counts=True))}
+        for col in cols:
+            col.upsert(f"d{i:05d}", bag)
+    for col in cols:
+        col.commit()
+    queries = [{f"w{t}": 1.0 for t in rng.zipf(1.3, 3) % 4000}
+               for _ in range(40)] + [{}]
+    return cols, queries
+
+
+def test_dense_column_on_card_matches_cpu(cuda):
+    """cuBLAS against torch's CPU matmul: names identical except inside a
+    near-tie group (f64 oracle scores within 1e-6, where an ulp of either
+    library's f32 sum decides), scores within rel 1e-6. Within the
+    card's column the served top-k equals the top-k of ``dense_scores``
+    to the bit, and a second run gives the same bits."""
+    from tfidf_tpu_torch.ops.dense import (chunk_rows, dense_scores,
+                                           packed_dense_topk)
+    from tfidf_tpu_torch.ops.topk import exact_topk, pack_topk
+    (gpu, cpu), queries = _dense_pair(cuda)
+    got = gpu.search_batch(queries, 10)
+    assert got == gpu.search_batch(queries, 10)
+    want = cpu.search_batch(queries, 10)
+    rows = np.stack([cpu._vecs[n] for n in cpu._names]).astype(np.float64)
+    slot = {n: i for i, n in enumerate(cpu._names)}
+    for counts, g, w in zip(queries, got, want):
+        s64 = rows @ cpu.embedder.embed_query(counts).astype(np.float64)
+        for (gn, gs), (wn, ws) in zip(g, w):
+            assert gs == pytest.approx(ws, rel=1e-6, abs=1e-7)
+            if gn != wn:
+                assert abs(s64[slot[gn]] - s64[slot[wn]]) <= 1e-6
+        assert len(g) == len(w) == 10
+    q = torch.from_numpy(gpu._embed_queries(queries)).to(cuda)
+    n = len(gpu._names)
+    packed = packed_dense_topk(q, gpu._emb_dev, n, k=10, chunk=1024)
+    full = dense_scores(q, gpu._emb_dev, n,
+                        chunk=chunk_rows(gpu._doc_cap, 1024, 10))
+    torch.cuda.synchronize()
+    assert torch.equal(packed, pack_topk(*exact_topk(full, n, k=10)))

@@ -27,10 +27,12 @@ print("HAS", " ".join(sorted(k for k in sys.modules
                              if k.startswith("tfidf_tpu_torch."))))
 """
 
-# the worker-engine slice's modules, each of which must be in the closure
+# the worker-engine and dense-plane slices' modules, each of which must be
+# in the closure
 WORKER_MODULES = ("utils.faults", "utils.storage", "utils.device_nemesis",
                   "native", "cluster.resilience", "engine.checkpoint",
-                  "engine.compute_health")
+                  "engine.compute_health", "engine.embedder", "engine.dense",
+                  "ops.dense")
 
 
 def test_whole_port_imports_with_jax_blocked():
@@ -46,9 +48,9 @@ def test_whole_port_imports_with_jax_blocked():
 
 
 def test_worker_modules_import_with_jax_blocked():
-    """Each module of the worker-engine slice imports on its own with
-    ``jax`` blocked and loads nothing of ``tfidf_tpu``; none builds the
-    native library or a kernel at import."""
+    """Each module of the worker-engine and dense-plane slices imports on
+    its own with ``jax`` blocked and loads nothing of ``tfidf_tpu``; none
+    builds the native library or a kernel at import."""
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "for m in sys.argv[1:]:\n"

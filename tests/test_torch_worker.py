@@ -11,7 +11,14 @@ Tolerances, with their reasons:
   map equals the naive f64 BM25 of ``tests/oracle.py`` within rel 1e-5
   (f32 scoring), whichever worker owns a document;
 * the JAX node's ``/admin/checkpoint`` of the port worker, loaded back by
-  the port: the same hits to the bit (the snapshot arrays round-trip).
+  the port: the same hits to the bit (the snapshot arrays round-trip);
+* the dense plane in the mixed fleet: ``mode=dense`` and ``mode=hybrid``
+  replies equal the single-node JAX oracle of ``tests/test_hybrid.py``
+  within rel 1e-5, before and after either worker's data plane dies; a
+  staged failover slice answered by the port worker (its
+  ``search_dense_names``) equals the JAX worker's: dense scores to the bit
+  (both are host numpy dots over the same vectors), sparse within rel
+  1e-6.
 """
 
 import json
@@ -24,10 +31,15 @@ import numpy as np
 import pytest
 
 from tests.oracle import bm25_scores
+from tests.test_hybrid import DOCS as HYBRID_DOCS
+from tests.test_hybrid import QUERIES as HYBRID_QUERIES
+from tests.test_hybrid import (_assert_parity, _hybrid_oracle,
+                               _kill_data_plane, _post_search)
 from tests.test_torch_engine import _assert_same_hits
 from tfidf_tpu.cluster.coordination import (CoordinationCore,
                                             LocalCoordination)
 from tfidf_tpu.cluster.node import SearchNode, http_post
+from tfidf_tpu.cluster.wire import unpack_hit_lists
 from tfidf_tpu.engine.engine import Engine as JaxEngine
 from tfidf_tpu.ops.analyzer import Analyzer as JaxAnalyzer
 from tfidf_tpu.utils.config import Config as JaxConfig
@@ -142,14 +154,15 @@ def core():
     c.close()
 
 
-def _node_cfg(tmp_path, tag):
+def _node_cfg(tmp_path, tag, embedding_enabled=False):
     return JaxConfig(documents_path=str(tmp_path / tag / "docs"),
                      index_path=str(tmp_path / tag / "index"), port=0,
                      min_doc_capacity=64, min_nnz_capacity=1 << 12,
                      min_vocab_capacity=1 << 10, query_batch=8,
                      max_query_terms=8, use_pallas=False, top_k=32,
                      replication_factor=2, result_cache_entries=0,
-                     router_cache_entries=0, embedding_enabled=False)
+                     router_cache_entries=0,
+                     embedding_enabled=embedding_enabled)
 
 
 def _post(base, path, obj):
@@ -253,3 +266,98 @@ def test_mixed_fleet_upload_search_checkpoint_degraded(core, tmp_path):
             except Exception:
                 pass
     assert np.isfinite(list(baseline["common"].values())).all()
+
+
+def _port_engine(pcfg, **kw):
+    return Engine(Config(
+        documents_path=pcfg.documents_path, index_path=pcfg.index_path,
+        min_doc_capacity=64, min_nnz_capacity=1 << 12,
+        min_vocab_capacity=1 << 10, query_batch=8, max_query_terms=8,
+        top_k=32, **kw), device="cpu")
+
+
+def _fleet(core, tmp_path, **port_kw):
+    """JAX leader, JAX worker, port worker (replication 2: each worker
+    holds the whole corpus), all with the dense plane on."""
+    nodes = [SearchNode(_node_cfg(tmp_path, tag, embedding_enabled=True),
+                        coord=LocalCoordination(core, 0.1)).start()
+             for tag in ("leader", "ref")]
+    pcfg = _node_cfg(tmp_path, "port", embedding_enabled=True)
+    port_engine = _port_engine(pcfg, **port_kw)
+    nodes.append(SearchNode(pcfg, coord=LocalCoordination(core, 0.1),
+                            engine=port_engine).start())
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline and len(
+            nodes[0].registry.get_all_service_addresses()) < 2:
+        time.sleep(0.02)
+    return nodes, port_engine
+
+
+PLANS = (("dense", None), ("hybrid", "rrf"), ("hybrid", "wsum"))
+
+
+@pytest.mark.parametrize("victim", ["port", "jax"])
+def test_mixed_fleet_dense_and_hybrid_match_the_oracle(core, tmp_path,
+                                                       victim):
+    nodes, port_engine = _fleet(core, tmp_path)
+    try:
+        leader, ref, port = nodes
+        assert port_engine.dense is not None
+        st, _, resp = _post(leader.url, "/leader/upload-batch",
+                            [{"name": n, "text": t}
+                             for n, t in HYBRID_DOCS.items()])
+        assert st == 200 and sorted(resp["placed"].values()) == [12, 12]
+        assert port_engine.dense_stats()["docs"] == len(HYBRID_DOCS)
+        want = {(m, f): _hybrid_oracle(tmp_path, f"oracle-{m}-{f}", m,
+                                       f or "rrf")
+                for m, f in PLANS}
+        calls = {"batch": 0, "names": 0}
+        for name in ("batch", "names"):
+            fn = getattr(port_engine, f"search_dense_{name}")
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(port_engine, f"search_dense_{name}", counted)
+
+        def check(ctx):
+            for m, f in PLANS:
+                for q in HYBRID_QUERIES:
+                    got, hd = _post_search(leader, q, mode=m, method=f)
+                    _assert_parity(got, want[(m, f)][q],
+                                   ctx=f"{ctx}:{m}:{f}:{q}")
+                    assert "X-Scatter-Degraded" not in hd
+                    assert "X-Compute-Degraded" not in hd
+
+        check("healthy")
+        assert calls["batch"] > 0          # the port worker served dense
+
+        # a staged failover slice on each worker: the port's
+        # search_dense_names against the JAX engine's
+        names = sorted(HYBRID_DOCS)[1::2]
+        body = json.dumps({"queries": HYBRID_QUERIES, "names": names,
+                           "mode": "hybrid"}).encode()
+        n = len(HYBRID_QUERIES)
+        got = unpack_hit_lists(http_post(port.url + "/worker/process-batch",
+                                         body))
+        exp = unpack_hit_lists(http_post(ref.url + "/worker/process-batch",
+                                         body))
+        assert len(got) == len(exp) == 2 * n and calls["names"] == 1
+        assert got[n:] == exp[n:] and any(got[n:])
+        for g, e in zip(got[:n], exp[:n]):
+            assert [h[0] for h in g] == [h[0] for h in e]
+            for (_, a), (_, b) in zip(g, e):
+                assert a == pytest.approx(b, rel=1e-6)
+
+        _kill_data_plane(port if victim == "port" else ref)
+        before = dict(calls)
+        for _ in range(2):
+            check(f"{victim} killed")
+        if victim == "jax":
+            assert calls["batch"] + calls["names"] > sum(before.values())
+    finally:
+        for nd in reversed(nodes):
+            try:
+                nd.stop()
+            except Exception:
+                pass

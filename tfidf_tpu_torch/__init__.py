@@ -7,8 +7,11 @@ counterpart is found at once:
               logging, tracing (``torch.profiler`` ranges)
     models    scoring model families (numpy only)
     ops       analyzer, COO helpers, scoring, top-k, blocked ELL and the
-              hand-written Hopper kernel behind it (``csrc/``)
-    engine    vocabulary, shard index, pipelined searcher, engine facade
+              hand-written Hopper kernel behind it (``csrc/``), the
+              chunked dense top-k
+    engine    vocabulary, shard index, pipelined searcher, embedder and
+              embedding column (the dense plane), checkpoints, compute
+              health, engine facade
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 there is no silent CPU fallback (:mod:`tfidf_tpu_torch.device`). The

@@ -12,7 +12,8 @@ containing:
     docs.npz      offsets[n+1], term_ids[nnz], tfs[nnz], lengths[n]
     names.json    document names, aligned with offsets
     snapshot.npz  the committed snapshot's arrays (fast restore)
-    meta.json     model kind, counts, format version
+    embeddings.npz  the dense plane's rows + their index into names.json
+    meta.json     model kind, counts, format version, embedder signature
     MANIFEST.json CRC32 + size of every file above (utils/storage.py)
 
 Crash consistency: every file is built in a temp sibling
@@ -24,11 +25,11 @@ after a successful publish, keeping ``config.storage_keep_versions``.
 version and falls back to the newest INTACT one, quarantining the corrupt
 directory.
 
-Not in this package yet: the segment-state payload (``segstate.npz``,
-``index_mode="segments"``) raises ``NotImplementedError``, and the
-embedding column (``embeddings.npz``) is skipped while ``engine.dense is
-None`` (the dense plane is not ported), exactly as the JAX package's
-restore skips it with the dense plane off.
+The embedding column restores from ``embeddings.npz`` when the stored
+embedder signature (model, dim) matches the running config; otherwise
+every document is re-embedded from ``vocab.txt`` and the term table. Not
+in this package yet: the segment-state payload (``segstate.npz``,
+``index_mode="segments"``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -102,6 +103,18 @@ def save_checkpoint(engine: Engine, directory: str) -> None:
                   lengths=lengths)
     storage.write_bytes(os.path.join(build, "names.json"),
                         json.dumps([d.name for d in entries]).encode())
+    # the embedding column rides the same build dir, so the manifest and
+    # publish_dir cover it; rows are stored with an index into names.json
+    emb_meta = None
+    if engine.dense is not None:
+        rows, dnames = engine.dense.export_arrays()
+        pos = {d.name: i for i, d in enumerate(entries)}
+        if all(nm in pos for nm in dnames):
+            storage.savez(
+                os.path.join(build, "embeddings.npz"), rows=rows,
+                name_idx=np.fromiter((pos[nm] for nm in dnames),
+                                     np.int64, len(dnames)))
+            emb_meta = engine.dense.embedder.signature()
     # fast-restore payload: the committed snapshot's arrays, so load
     # skips the O(corpus) host COO/ELL re-layout. The snapshot's doc
     # order is its own (width-sorted); it is stored as a permutation
@@ -129,7 +142,7 @@ def save_checkpoint(engine: Engine, directory: str) -> None:
         "nnz": nnz,
         "vocab_size": len(engine.vocab),
         "snapshot": snap_meta,
-        "embedding": None,
+        "embedding": emb_meta,
         "tier": engine.tier_stats(),
         # wall-clock save time: a boot re-walk re-ingests only files
         # modified after this
@@ -160,6 +173,40 @@ def save_checkpoint(engine: Engine, directory: str) -> None:
              version=version)
 
 
+def _restore_dense(engine: Engine, directory: str, meta: dict,
+                   names: list, docs) -> None:
+    """Repopulate the embedding column. Fast path: install the stored
+    rows when the checkpoint's embedding signature matches the running
+    config. Otherwise (no ``embeddings.npz``, a signature change)
+    re-embed every document from the checkpoint's own term table —
+    ``vocab.txt`` line ``i`` IS term id ``i``, so ``term_ids``/``tfs``
+    rebuild exactly the token->tf counts the embedder consumed at
+    ingest. Either way the column is rebuilt, never silently stale.
+    ``docs`` is the loaded ``docs.npz``, read only to re-embed."""
+    if engine.dense is None:
+        return
+    emb_path = os.path.join(directory, "embeddings.npz")
+    if (meta.get("embedding") == engine.dense.embedder.signature()
+            and os.path.exists(emb_path)):
+        data = np.load(emb_path)
+        engine.dense.install_arrays(
+            data["rows"], [names[i] for i in data["name_idx"]])
+        engine.dense.commit()
+        return
+    global_metrics.inc("checkpoint_dense_reembeds")
+    with open(os.path.join(directory, "vocab.txt"), encoding="utf-8") as f:
+        terms = f.read().splitlines()
+    offsets, term_ids, tfs = docs["offsets"], docs["term_ids"], docs["tfs"]
+    lo_list = offsets[:-1].tolist()
+    hi_list = offsets[1:].tolist()
+    for i, name in enumerate(names):
+        ids = term_ids[lo_list[i]:hi_list[i]]
+        weights = tfs[lo_list[i]:hi_list[i]]
+        engine.dense.upsert(
+            name, {terms[int(t)]: float(w) for t, w in zip(ids, weights)})
+    engine.dense.commit()
+
+
 def load_checkpoint(directory: str, config: Config | None = None,
                     verify: bool = True, device=None) -> Engine:
     """Load one checkpoint version (``directory`` may be the published
@@ -167,10 +214,7 @@ def load_checkpoint(directory: str, config: Config | None = None,
     gates the manifest integrity check — a torn or bit-rotted file raises
     :class:`~tfidf_tpu_torch.utils.storage.StorageCorruption`; use
     :func:`restore_checkpoint` for the fallback-aware boot path.
-
-    ``config=None`` means ``Config()``, whose dense plane is on and not
-    ported: that raises ``NotImplementedError``, as ``Engine`` does,
-    rather than switching the plane off behind the caller's back."""
+    ``config=None`` means ``Config()`` (the dense plane on)."""
     if verify:
         with trace_phase("restore.verify"):
             problems = storage.verify_manifest(directory)
@@ -223,6 +267,8 @@ def load_checkpoint(directory: str, config: Config | None = None,
             global_metrics.inc("checkpoint_snapshot_installs")
     if not installed:
         engine.commit()
+    with trace_phase("restore.dense"):
+        _restore_dense(engine, directory, meta, names, data)
     log.info("checkpoint loaded", dir=directory, docs=len(names),
              fast_snapshot=installed)
     return engine

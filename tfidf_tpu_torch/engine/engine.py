@@ -3,12 +3,16 @@ on a torch device.
 
 The counterpart of ``tfidf_tpu/engine/engine.py`` in local rebuild mode:
 ingest bytes -> text -> tokens -> vocab ids -> shard index; commit;
-search; checkpoint (``engine/checkpoint.py``); rebuild. ASCII documents
-take the native C++ tokenizer (:mod:`tfidf_tpu_torch.native`), others
-the result-identical Python analyzer. Raw documents on disk are the
-source of truth: ``ingest_bytes`` / ``stage_bytes`` + ``publish_staged``
-write them durably through :mod:`tfidf_tpu_torch.utils.storage`, and
-``build_from_directory`` rebuilds the index from them.
+search; checkpoint (``engine/checkpoint.py``); rebuild. With the dense
+plane on (``embedding_enabled``, the Config default) every document also
+feeds an :class:`~tfidf_tpu_torch.engine.dense.EmbeddingColumn` and takes
+the Python analyzer, so one tokenize feeds both planes; with it off, ASCII
+documents take the native C++ tokenizer (:mod:`tfidf_tpu_torch.native`)
+and others the result-identical Python analyzer. Raw documents on disk
+are the source of truth: ``ingest_bytes`` / ``stage_bytes`` +
+``publish_staged`` write them durably through
+:mod:`tfidf_tpu_torch.utils.storage`, and ``build_from_directory``
+rebuilds the index from them.
 
 Every search routes through the compute guard (:meth:`Engine._run_compute`):
 device faults are classified, advance the :class:`ComputeHealth` machine
@@ -16,11 +20,11 @@ and run the OOM batch-backoff ladder. Only faults the device nemesis
 injected (:class:`DeviceFault`) degrade to the bit-exact host mirror
 (:class:`HostFallbackScorer`, when ``compute_fallback`` is on); a real
 CUDA error or OOM re-raises, so a kernel that fails is never hidden
-behind the host. Poison is never absorbed.
+behind the host. Poison is never absorbed. The dense plane is never
+host-served: its faults advance health, ladder down on OOM and re-raise.
 
 Not ported yet — each raises ``NotImplementedError`` naming what is
-missing: ``engine_mode="mesh"``, ``index_mode="segments"`` and the dense
-plane (``embedding_enabled=True``, the Config default: pass False).
+missing: ``engine_mode="mesh"`` and ``index_mode="segments"``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import traceback
 from tfidf_tpu_torch.engine.compute_health import (ComputeHealth,
                                                    FallbackUnsupported,
                                                    HostFallbackScorer)
+from tfidf_tpu_torch.engine.dense import EmbeddingColumn
+from tfidf_tpu_torch.engine.embedder import get_embedder
 from tfidf_tpu_torch.engine.index import ShardIndex
 from tfidf_tpu_torch.engine.searcher import Searcher, SearchHit
 from tfidf_tpu_torch.engine.vocab import NativeVocabulary, Vocabulary
@@ -76,14 +82,11 @@ class Engine:
             raise _later(f"engine_mode={c.engine_mode!r}")
         if c.index_mode != "rebuild":
             raise _later(f"index_mode={c.index_mode!r}")
-        if c.embedding_enabled:
-            raise _later("the dense plane (embedding_enabled=True; pass "
-                         "embedding_enabled=False)")
         # single-writer mutation guard; RLock because ingest_bytes ->
         # ingest_text nests
         self._write_lock = threading.RLock()
-        self.dense = None    # the dense plane is not ported
-        self.tier = None     # nor tiered segments
+        self.dense = None    # set below when embedding_enabled
+        self.tier = None     # tiered segments are not ported
         self.compute = ComputeHealth(
             degraded_after=c.compute_degraded_after,
             sick_after=c.compute_sick_after,
@@ -132,12 +135,20 @@ class Engine:
             pipeline_mode=c.search_pipeline_mode)
         if c.compute_fallback:
             self._fallback = HostFallbackScorer(self.searcher)
+        # the dense plane: a per-doc embedding column beside the sparse
+        # postings, mutated by the same ingest/delete calls under the same
+        # write lock and committed by the same commit()
+        if c.embedding_enabled:
+            self.dense = EmbeddingColumn(
+                get_embedder(c.embedding_model, c.embedding_dim),
+                min_doc_capacity=c.min_doc_capacity,
+                chunk=c.embedding_chunk, device=self.device)
 
     # ---- ingest ----
 
     def ingest_text(self, name: str, text: str) -> None:
         with self._write_lock, trace_phase("analyze"):
-            if self.native is not None:
+            if self.native is not None and self.dense is None:
                 res = self.native.analyze(text, add=True)
                 if res is not None:
                     # the native tokenizer takes ASCII documents; others
@@ -146,11 +157,17 @@ class Engine:
                     ids, tfs, length = res
                     self.index.add_document_arrays(name, ids, tfs, length)
                     return
+            # the embedder hashes token STRINGS (vocab ids are per-worker
+            # insertion order and would break replica-identical dense
+            # scores), so with the dense plane on every document takes
+            # this path and its counts feed both planes
             global_metrics.inc("ingest_python_fallback")
             counts = self.analyzer.counts(text)
             length = float(sum(counts.values()))
             id_counts = self.vocab.map_counts(counts, add=True)
             self.index.add_document(name, id_counts, length=length)
+            if self.dense is not None:
+                self.dense.upsert(name, counts)
 
     def ingest_bytes(self, name: str, data: bytes,
                      save_to_disk: bool = False) -> None:
@@ -226,7 +243,10 @@ class Engine:
 
     def delete(self, name: str) -> bool:
         with self._write_lock:
-            return self.index.delete_document(name)
+            ok = self.index.delete_document(name)
+            if self.dense is not None:
+                self.dense.delete(name)
+            return ok
 
     def document_names(self) -> list[str]:
         return self.index.live_names()
@@ -236,6 +256,8 @@ class Engine:
         dir, so a restart's re-walk does not resurrect it."""
         with self._write_lock:
             ok = self.index.delete_document(rel)
+            if self.dense is not None:
+                self.dense.delete(rel)
             try:
                 path = self._safe_doc_path(rel)
                 if os.path.isfile(path):
@@ -247,6 +269,8 @@ class Engine:
     def commit(self) -> None:
         with self._write_lock, trace_phase("commit"), Stopwatch() as sw:
             self.index.commit(self.vocab.capacity())
+            if self.dense is not None:
+                self.dense.commit()
             self.prime_fallback()
         log.info("commit", ms=sw.ms, docs=self.index.num_live_docs)
 
@@ -425,19 +449,46 @@ class Engine:
             lambda qs: self._fallback.search_arrays(qs, k=k),
             merge=self._merge_arrays)
 
-    # ---- the dense plane and tiering are off (not ported): the JAX
-    # engine's answers with both off ----
+    # ---- the dense plane ----
+
+    def _dense_plane(self):
+        if self.dense is None:
+            raise RuntimeError(
+                "dense plane disabled (embedding_enabled=False)")
+        return self.dense
 
     def search_dense_batch(self, queries: list[str],
                            k: int | None = None) -> list[list[tuple]]:
-        raise RuntimeError("dense plane disabled (embedding_enabled=False)")
+        """Exact dense top-k per query as ``[(name, score), ...]``
+        (cosine, sorted by (-score, name)). Loud when the dense plane is
+        off — a silent sparse fallback would fake hybrid results.
+        Health-guarded but never host-served (no fallback): a fault
+        classifies, advances health, ladders down on OOM, and re-raises
+        to the router's failover."""
+        dense = self._dense_plane()
+        kk = int(k) if k is not None else self.config.top_k
+
+        return self._run_compute(
+            queries,
+            lambda qs: dense.search_batch(
+                [self.analyzer.counts(q) for q in qs], kk),
+            None, merge=lambda parts: [r for p in parts for r in p])
 
     def search_dense_names(self, queries: list[str],
                            names: list[str]) -> list[dict]:
-        raise RuntimeError("dense plane disabled (embedding_enabled=False)")
+        """Failover-slice dense scores: name->score per query for the
+        names this engine holds (absent names are simply missing)."""
+        dense = self._dense_plane()
+        return self._run_compute(
+            queries,
+            lambda qs: dense.search_names(
+                [self.analyzer.counts(q) for q in qs], names),
+            None, merge=lambda parts: [r for p in parts for r in p])
 
-    def dense_stats(self) -> None:
-        return None
+    def dense_stats(self) -> dict | None:
+        """Embedding-column summary for /api/health and `status` — None
+        when the dense plane is off."""
+        return self.dense.stats() if self.dense is not None else None
 
     def tier_stats(self) -> dict:
         return {"enabled": False}
