@@ -63,7 +63,31 @@ beside it. Phases (any failure fails the run):
    for every one, dense plane off), then ``build_from_directory`` with
    the dense plane on in a fresh engine (the Python analyzer; every
    document embedded through the upsert path): identical sparse hits on
-   64 queries, and their dense top-10 against a numpy f64 brute force.
+   64 queries, and their dense top-10 against a numpy f64 brute force;
+7. the fleet, as a deployment runs it: phase 3's corpus split into two
+   disjoint 500,000-doc shards, each bulk-loaded here and saved as a
+   worker's checkpoint; then one ``python -m tfidf_tpu_torch`` process per
+   node on the one card (a ``coordinator``, a ``serve`` leader, two
+   ``serve`` workers restoring their shards at boot, a ``router``), the
+   default ``Config`` with ``replication_factor=1`` and coordination
+   sessions of 30 s (``FLEET_ENV``). From 64 client
+   threads, one query a ``POST /leader/start``: 4,096 sparse, 1,024
+   dense and 1,024 hybrid (rrf) queries through the leader, 1,024 sparse
+   through the router; then 2,000 new documents through
+   ``/leader/upload-batch``, each read back. Sparse replies against a
+   scipy f64 oracle scoring each shard with its own statistics, dense
+   against a numpy f64 brute force, hybrid against ``fusion.fuse`` of the
+   two, router replies equal to the leader's; no reply degraded, every
+   worker healthy with no fallback-served request, every worker's ELL
+   kernel launched in each sparse and hybrid window (its
+   ``ell_kernel_launches_v4`` counter, read before and after), every
+   process alive until SIGTERM stops it with exit code 0. q/s and p50/p99
+   per mode, queries per worker batch, per-layer window means from each
+   node's ``/api/metrics``, boot-to-serving seconds, upload docs/s, the
+   card's ``memory.used`` as each node comes up (nvidia-smi lists no
+   per-process memory in a container; exactly four processes may hold a
+   CUDA context: this one, the leader, the workers) and its
+   ``utilization.gpu`` (10 Hz) over each window.
 
 After every phase with nothing armed, each engine's compute health must
 be healthy with no new fault and no fallback-served request.
@@ -892,7 +916,7 @@ def main_path(seed: int, n_docs: int) -> dict:
            "topk_tied_ranks": tied, "kernel": ktimes}
     ctx = {"engine": engine, "served": served, "arrays_q": arrays_q,
            "hits": hits, "arrays": arrays, "want": want,
-           "queries": queries, "rows": rows}
+           "queries": queries, "rows": rows, "corpus": corpus}
     return res, ctx
 
 
@@ -1677,6 +1701,692 @@ def durable_phase(seed: int, work: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 7: the fleet — the port's CLI, one process per node, on the card
+# --------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SMI = "nvidia-smi"
+FLEET_DEVICE = "cuda"      # every serve process's --device
+FLEET_CLIENTS = 64         # concurrent client threads, one query a POST
+FLEET_SPARSE = 4096        # sparse queries through the leader
+FLEET_STAGED = 1024        # dense, hybrid (rrf), router queries, and the
+                           # replies of each mode held to the oracles
+FLEET_UPLOADS = 2000       # new documents through /leader/upload-batch
+FLEET_UPLOAD_CHUNK = 500   # documents per upload-batch request (the CLI's)
+FLEET_BOOT_S = 300.0       # deadline for the fleet to serve the corpus
+# the deployment: the default Config with the reference's single-copy
+# placement (each document on one worker), and coordination sessions of
+# 30 s, not 3 s. The placement map of 1M names is one znode (~39 MB, ~78 MB
+# as hex in JSON) that the leader rewrites after each change and every
+# follower (the router, each worker) reads whole, on its data watch and on
+# a 1 s backstop. At the 3 s default a coordinator serving that traffic at
+# the north star stalls past the timeout and every node's session expires
+# (ROADMAP queue C).
+FLEET_ENV = {"TFIDF_REPLICATION_FACTOR": "1",
+             "TFIDF_SESSION_TIMEOUT_S": "30"}
+# per-window means of these timings (ms) are read from /api/metrics
+FLEET_TIMINGS = {"leader": ("leader_search", "scatter_linger",
+                            "scatter_batch_total", "scatter_rpc",
+                            "scatter_decode", "scatter_merge"),
+                 "router": ("leader_search", "router_scatter_linger",
+                            "router_scatter_batch_total", "scatter_rpc",
+                            "scatter_merge"),
+                 "worker": ("worker_batch_search", "worker_batch_pack")}
+
+
+def fleet_shards(data, work: str) -> list:
+    """Split the phase-3 corpus into two disjoint halves; bulk-load each
+    into a fresh engine on the card (the dense column from phase 3's rows
+    through its bulk path), commit it and save it as that worker's
+    checkpoint, then free the card."""
+    from tfidf_tpu_torch.engine.checkpoint import save_checkpoint
+    from tfidf_tpu_torch.engine.engine import Engine
+    from tfidf_tpu_torch.utils.config import Config
+    offsets, ids, tfs, lengths = data["corpus"]
+    n = offsets.shape[0] - 1
+    bounds = (0, n // 2, n)
+    shards = []
+    for i in range(2):
+        lo, hi = bounds[i], bounds[i + 1]
+        a, b = offsets[lo], offsets[hi]
+        names = [f"d{j}" for j in range(lo, hi)]
+        root = os.path.join(work, "fleet", f"worker{i}")
+        ckpt = os.path.join(root, "index", "checkpoint")
+        t0 = time.perf_counter()
+        e = Engine(Config(), device=FLEET_DEVICE)
+        e.vocab.extend(f"t{t}" for t in range(NS_VOCAB))
+        e.index.bulk_load_packed(names, offsets[lo:hi + 1] - a, ids[a:b],
+                                 tfs[a:b], lengths[lo:hi])
+        e.dense.install_arrays(data["rows"][lo:hi], names)
+        e.dense.commit()
+        e.commit()
+        sync()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_checkpoint(e, ckpt)
+        save_s = time.perf_counter() - t0
+        if e.index.num_live_docs != hi - lo:
+            raise SystemExit(f"fleet: shard {i} holds "
+                             f"{e.index.num_live_docs} docs")
+        del e
+        torch.cuda.empty_cache()
+        shards.append({"lo": lo, "hi": hi, "root": root,
+                       "build_s": build_s, "save_s": save_s,
+                       "bytes": dir_bytes(os.path.realpath(ckpt))})
+        log(f"[fleet] shard {i}: d{lo}..d{hi - 1} bulk-loaded and "
+            f"committed in {build_s:.2f}s, checkpoint saved in "
+            f"{save_s:.2f}s ({shards[-1]['bytes']} bytes)")
+    return shards
+
+
+def http_json(url: str, body=None, timeout: float = 120.0):
+    """GET (``body`` None) or POST JSON; returns (decoded reply, headers).
+    A non-2xx reply raises."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read()), r.headers
+
+
+class Fleet:
+    """The processes of one fleet: spawn, watch, stop."""
+
+    def __init__(self, logs: str) -> None:
+        self.logs = logs
+        self.procs: dict = {}
+        self.env = dict(os.environ, PYTHONPATH=ROOT, **FLEET_ENV)
+        self.env.pop("TFIDF_DEVICE", None)
+
+    def spawn(self, tag: str, *argv: str) -> None:
+        f = open(os.path.join(self.logs, f"{tag}.log"), "w")
+        p = subprocess.Popen([sys.executable, "-m", "tfidf_tpu_torch",
+                              *argv], cwd=ROOT, env=self.env, stdout=f,
+                             stderr=subprocess.STDOUT)
+        self.procs[tag] = (p, f, time.perf_counter())
+
+    def tail(self, tag: str, n: int = 30) -> str:
+        with open(os.path.join(self.logs, f"{tag}.log")) as f:
+            return "".join(f.readlines()[-n:])
+
+    def check_alive(self) -> None:
+        for tag, (p, _, _) in self.procs.items():
+            if p.poll() is not None:
+                raise SystemExit(f"fleet: {tag} exited with {p.returncode}"
+                                 f":\n{self.tail(tag)}")
+
+    def wait(self, what: str, pred, timeout: float = FLEET_BOOT_S):
+        deadline = time.monotonic() + timeout
+        while True:
+            self.check_alive()
+            try:
+                got = pred()
+            except OSError:
+                got = None
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise SystemExit(f"fleet: timed out waiting for {what}")
+            time.sleep(0.2)
+
+    def stop(self) -> dict:
+        """SIGTERM every process (workers and router first, the leader,
+        then the coordinator); returns each exit code."""
+        import signal
+        codes = {}
+        for tag in sorted(self.procs, key=lambda t: (
+                t == "coordinator", t == "leader")):
+            p, f, _ = self.procs[tag]
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+            try:
+                codes[tag] = p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+                codes[tag] = "killed"
+            f.close()
+        return codes
+
+
+def free_ports(n: int) -> list:
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s_ in socks:
+        s_.bind(("127.0.0.1", 0))
+    ports = [s_.getsockname()[1] for s_ in socks]
+    for s_ in socks:
+        s_.close()
+    return ports
+
+
+def fleet_traffic(url: str, queries, mode: str = "sparse",
+                  fusion=None) -> tuple:
+    """``queries`` through ``url``/leader/start from FLEET_CLIENTS
+    threads, one query a POST. Returns (replies, stats); a reply stamped
+    degraded fails the phase."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(q):
+        body = {"query": q}
+        if mode != "sparse":
+            body["mode"] = mode
+        if fusion is not None:
+            body["fusion"] = fusion
+        t0 = time.perf_counter()
+        out, hdrs = http_json(url + "/leader/start", body)
+        dt = time.perf_counter() - t0
+        for h in ("X-Compute-Degraded", "X-Scatter-Degraded"):
+            if hdrs.get(h):
+                raise SystemExit(f"fleet: {mode} reply to {q!r} stamped "
+                                 f"{h}: {hdrs.get(h)}")
+        return out, dt, hdrs.get("X-Search-Stages")
+
+    with ThreadPoolExecutor(FLEET_CLIENTS) as pool:
+        t0 = time.perf_counter()
+        res = list(pool.map(one, queries))
+        wall = time.perf_counter() - t0
+    lat = np.array([r[1] for r in res]) * 1e3
+    stages = {r[2] for r in res}
+    return [r[0] for r in res], {
+        "queries": len(queries), "wall_s": wall,
+        "qps": len(queries) / wall, "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "mean_ms": float(lat.mean()), "stages": sorted(map(str, stages))}
+
+
+class ViewAges:
+    """The age (s since last confirmed current) of each follower's
+    placement view, sampled every 250 ms while the block runs. A view
+    older than ``router_stale_ms`` (5 s) stamps the router's replies
+    ``stale_view``."""
+
+    def __init__(self, urls: dict) -> None:
+        self.urls = urls
+        self.ages = {t: [] for t in urls}
+
+    def __enter__(self):
+        import threading
+        self.stop = threading.Event()
+
+        def poll():
+            while not self.stop.wait(0.25):
+                for t, u in self.urls.items():
+                    try:
+                        age = http_json(u + "/api/router", timeout=30)[0][
+                            "placement"].get("age_s")
+                    except OSError:
+                        continue
+                    if age is not None:
+                        self.ages[t].append(age)
+        self.thread = threading.Thread(target=poll, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=60)
+        self.result = {t: {"samples": len(a),
+                           "max_s": max(a) if a else "not measured"}
+                       for t, a in self.ages.items()}
+        return False
+
+
+class GpuSampler:
+    """``utilization.gpu`` sampled every 100 ms while the block runs: the
+    percent of each sample period in which a kernel was executing, a
+    coarse device-busy share of the window."""
+
+    def __enter__(self):
+        self.p = subprocess.Popen(
+            [SMI, "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.p.terminate()
+        out, _ = self.p.communicate(timeout=30)
+        vals = [int(v) for v in out.split() if v.strip().isdigit()]
+        self.result = ({"samples": len(vals),
+                        "mean_util_pct": float(np.mean(vals)),
+                        "busy_share": float(np.mean(vals)) / 100.0,
+                        "idle_share": 1.0 - float(np.mean(vals)) / 100.0}
+                       if vals else {"samples": 0,
+                                     "busy_share": "not measured"})
+        return False
+
+
+def smi_query(*args: str) -> str:
+    return subprocess.run([SMI, *args, "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def card_memory_mib() -> float:
+    return float(smi_query("--query-gpu=memory.used"))
+
+
+def hold(got: dict, cand, score_of, score_tol, tie_tol, what: str) -> int:
+    """One reply (name -> f32 score, in the plane's (-score, name) order)
+    against its oracle: ``cand`` holds (name, f64 score) for every doc
+    that can reach the top-k, ``score_of`` gives any doc's f64 score.
+    Ids identical rank by rank except inside a near-tie group (scores
+    within ``tie_tol``), each reply score within ``score_tol`` of its
+    doc's f64 score. Returns the near-tie swaps."""
+    want = sorted(cand, key=lambda t: (-t[1], t[0]))[:TOP_K]
+    items = list(got.items())
+    if len(items) != len(want):
+        raise SystemExit(f"fleet {what}: {len(items)} hits, oracle "
+                         f"{len(want)}: {items} vs {want}")
+    order = sorted(items, key=lambda t: (-t[1], t[0]))
+    if order != items:
+        raise SystemExit(f"fleet {what}: reply not in (-score, name) "
+                         f"order: {items}")
+    swaps = 0
+    for (gn, gs), (wn, ws) in zip(items, want):
+        s = score_of(gn)
+        if abs(gs - s) > score_tol(s):
+            raise SystemExit(f"fleet {what}: {gn} scored {gs}, oracle {s}")
+        if gn != wn:
+            if abs(s - ws) > tie_tol(ws):
+                raise SystemExit(f"fleet {what}: {gn} ({s}) where the "
+                                 f"oracle ranks {wn} ({ws})")
+            swaps += 1
+    return swaps
+
+
+def _top_candidates(s: np.ndarray, base: int, positive: bool) -> list:
+    """(name, score) of every doc at or above the k-th largest score
+    (above zero too, when ``positive``)."""
+    k = min(TOP_K, s.shape[0])
+    kth = np.partition(s, s.shape[0] - k)[s.shape[0] - k]
+    idx = np.flatnonzero(s >= kth)
+    if positive:
+        idx = idx[s[idx] > 0]
+    return [(f"d{base + i}", float(s[i])) for i in idx]
+
+
+def fleet_sparse_oracle(corpus, shards, queries, replies) -> tuple:
+    """Sparse replies against an f64 oracle that scores each shard with
+    its own df, N and average length (what each worker computes) and
+    merges by (-score, name): each shard's impacts in a scipy CSR matrix
+    by term, a query's scores the sum of its terms' rows. Returns (stats,
+    per-query swaps, the oracle's top-k maps)."""
+    import scipy.sparse as sp
+    offsets, ids, tfs, lengths = corpus
+    k1, b = 1.2, 0.75
+    mats = []
+    for sh in shards:
+        lo, hi = sh["lo"], sh["hi"]
+        a, z = offsets[lo], offsets[hi]
+        n = hi - lo
+        sid, stf = ids[a:z], tfs[a:z].astype(np.float64)
+        slen = lengths[lo:hi].astype(np.float64)
+        row = np.repeat(np.arange(n), np.diff(offsets[lo:hi + 1]))
+        df = np.bincount(sid, minlength=NS_VOCAB).astype(np.float64)
+        idf = np.log1p((n - df + 0.5) / (df + 0.5))
+        imp = idf[sid] * stf / (stf + k1 * (1 - b + b * slen[row]
+                                            / slen.mean()))
+        by_term = sp.csr_matrix((imp, (sid.astype(np.int64), row)),
+                                shape=(NS_VOCAB, n))
+        mats.append((lo, n, by_term))
+
+    def one(i):
+        terms, counts = np.unique([int(t[1:]) for t in queries[i].split()],
+                                  return_counts=True)
+        cand, rows = [], []
+        for lo, n, M in mats:
+            s_ = np.zeros(n)
+            for t, c in zip(terms, counts):
+                a, z = M.indptr[t], M.indptr[t + 1]
+                s_[M.indices[a:z]] += c * M.data[a:z]
+            cand += _top_candidates(s_, lo, positive=True)
+            rows.append((lo, s_))
+
+        def score_of(name):
+            d = int(name[1:])
+            for lo, s_ in reversed(rows):
+                if d >= lo:
+                    return float(s_[d - lo])
+
+        return (hold(replies[i], cand, score_of, lambda v: 1e-5 * abs(v),
+                     lambda v: 1e-6 * abs(v), f"sparse q{i}"),
+                dict(sorted(cand, key=lambda t: (-t[1], t[0]))[:TOP_K]))
+
+    # numpy's array loops release the GIL: one thread per core
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        res = list(pool.map(one, range(len(queries))))
+    swaps, tops = [r[0] for r in res], [r[1] for r in res]
+    ranks = sum(len(r) for r in replies)
+    return ({"queries": len(replies), "ranks": ranks,
+             "ids_identical": ranks - sum(swaps),
+             "near_tie_swaps": sum(swaps)}, swaps, tops)
+
+
+def fleet_dense_oracle(rows, queries, replies) -> tuple:
+    """Dense replies against a numpy f64 brute force over both shards'
+    rows (phase 3d's tolerances; ties by name, the plane's merge order).
+    Returns (stats, per-query swaps, the oracle's top-k maps)."""
+    from tfidf_tpu_torch.engine.embedder import get_embedder
+    from tfidf_tpu_torch.ops.analyzer import Analyzer
+    from tfidf_tpu_torch.utils.config import Config
+    c = Config()
+    an = Analyzer(lowercase=c.lowercase, stopwords=frozenset(c.stopwords),
+                  max_token_length=c.max_token_length)
+    emb = get_embedder(c.embedding_model, c.embedding_dim)
+    rows64 = rows.astype(np.float64)
+    Q = np.stack([emb.embed_query(an.counts(q))
+                  for q in queries]).astype(np.float64)
+
+    def one(i):
+        s = rows64 @ Q[i]
+        cand = _top_candidates(s, 0, positive=False)
+        sw = hold(replies[i], cand, lambda name: float(s[int(name[1:])]),
+                  lambda v: 1e-6 + 1e-5 * abs(v), lambda v: 1e-6,
+                  f"dense q{i}")
+        err = max((abs(v - s[int(n[1:])]) for n, v in replies[i].items()),
+                  default=0.0)
+        return sw, dict(sorted(cand, key=lambda t: (-t[1], t[0]))
+                        [:TOP_K]), float(err)
+
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        res = list(pool.map(one, range(len(queries))))
+    swaps = [r[0] for r in res]
+    ranks = sum(len(r) for r in replies)
+    return ({"queries": len(replies), "ranks": ranks,
+             "ids_identical": ranks - sum(swaps),
+             "near_tie_swaps": sum(swaps),
+             "max_abs_err": max(r[2] for r in res)},
+            swaps, [r[1] for r in res])
+
+
+def fleet_hybrid_check(hybrid, sparse, dense, s_top, d_top, s_swaps,
+                       d_swaps) -> dict:
+    """Each hybrid (rrf) reply is ``fusion.fuse`` of the two oracles'
+    top-k; a query whose stage replies hold a near-tie swap is held to
+    the fusion of its served stage replies instead (the tie's order is
+    the f32 sum's, not the oracle's), and every reply equals that fusion
+    exactly."""
+    from tfidf_tpu_torch.cluster.fusion import fuse
+    from tfidf_tpu_torch.utils.config import Config
+    c = Config()
+
+    def fused(sm, dm):
+        f = fuse(sm, dm, method="rrf", k=c.top_k, rrf_k=c.fusion_rrf_k,
+                 w_sparse=c.fusion_weight_sparse,
+                 w_dense=c.fusion_weight_dense)
+        return dict(sorted(f.items(), key=lambda t: (-t[1], t[0]))
+                    [:c.top_k])
+
+    oracle_equal = tie_held = 0
+    for i, got in enumerate(hybrid):
+        if got != fused(sparse[i], dense[i]):
+            raise SystemExit(f"fleet hybrid q{i}: reply is not the fusion "
+                             f"of its stage replies: {got}")
+        if s_swaps[i] or d_swaps[i]:
+            tie_held += 1
+            continue
+        want = fused(s_top[i], d_top[i])
+        if list(got) != list(want) or any(
+                abs(got[n] - want[n]) > 1e-12 for n in want):
+            raise SystemExit(f"fleet hybrid q{i}: {got} vs the fusion of "
+                             f"the oracles {want}")
+        oracle_equal += 1
+    return {"queries": len(hybrid), "equal_to_fused_oracles": oracle_equal,
+            "held_to_fused_stages_near_tie": tie_held}
+
+
+def fleet_phase(data, shards, seed: int, work: str, out_dir: str) -> dict:
+    """Phase 7: coordinator, leader, two workers and a router as
+    ``python -m tfidf_tpu_torch`` processes on the one card; the workers
+    restore their shards at boot; traffic from FLEET_CLIENTS threads.
+    The processes' logs are copied to ``out_dir``/fleet_logs, pass or
+    fail."""
+    root = os.path.join(work, "fleet")
+    fleet = Fleet(root)
+    cport, lport, w0, w1, rport = free_ports(5)
+    caddr = f"127.0.0.1:{cport}"
+    url = {t: f"http://127.0.0.1:{p}" for t, p in
+           (("leader", lport), ("worker0", w0), ("worker1", w1),
+            ("router", rport))}
+    n_docs = data["corpus"][0].shape[0] - 1
+    res = {"config": {"env": FLEET_ENV, "clients": FLEET_CLIENTS,
+                      "docs": n_docs, "shards": [sh["hi"] - sh["lo"]
+                                                 for sh in shards]},
+           "shards": shards}
+
+    def serve(tag, port):
+        d = os.path.join(root, tag)
+        # documents_path does not exist at boot: a bulk-loaded shard has
+        # no raw files, and restore-at-boot drops every checkpointed doc
+        # without one when the directory exists
+        fleet.spawn(tag, "serve", "--device", FLEET_DEVICE,
+                    "--host", "127.0.0.1", "--port", str(port),
+                    "--coordinator-address", caddr,
+                    "--documents-path", os.path.join(d, "documents"),
+                    "--index-path", os.path.join(d, "index"))
+
+    def metrics(tag):
+        return http_json(url[tag] + "/api/metrics")[0]
+
+    def text(u):
+        import urllib.request
+        with urllib.request.urlopen(u, timeout=30) as r:
+            return r.read().decode()
+
+    try:
+        # the card's memory.used as the fleet comes up: nvidia-smi lists
+        # no per-process memory in a container (every compute process as
+        # pid 1 with the card's total), so each step's growth is the
+        # process it started
+        mem = {"before": card_memory_mib()}
+        t_boot = time.perf_counter()
+        fleet.spawn("coordinator", "coordinator", "--listen", caddr)
+        serve("leader", lport)
+        fleet.wait("the leader's election", lambda: text(
+            url["leader"] + "/api/status") == "I am the leader")
+        res["leader_up_s"] = time.perf_counter() - t_boot
+        mem["leader_up"] = card_memory_mib()
+        for i, tag in enumerate(("worker0", "worker1")):
+            if os.path.exists(os.path.join(root, tag, "documents")):
+                raise SystemExit(f"fleet: {tag}'s documents dir exists")
+            serve(tag, (w0, w1)[i])
+        boot = {}
+        for tag in ("worker0", "worker1"):
+            fleet.wait(f"{tag} serving", lambda tag=tag: http_json(
+                url[tag] + "/api/health")[0]["ok"])
+            boot[tag] = time.perf_counter() - fleet.procs[tag][2]
+        res["worker_boot_to_serving_s"] = boot
+        mem["workers_up"] = card_memory_mib()
+        fleet.wait("two workers registered", lambda: len(http_json(
+            url["leader"] + "/api/services")[0]) == 2)
+        for i, tag in enumerate(("worker0", "worker1")):
+            emb = http_json(url[tag] + "/api/health")[0]["embedding"]
+            want = shards[i]["hi"] - shards[i]["lo"]
+            if emb["docs"] != want:
+                raise SystemExit(f"fleet: {tag} restored {emb} "
+                                 f"(expected {want} docs)")
+        fleet.wait("the leader adopting every restored doc", lambda:
+                   metrics("leader").get("residue_orphans_adopted", 0)
+                   >= n_docs)
+        res["fleet_serving_s"] = time.perf_counter() - t_boot
+        fleet.spawn("router", "router", "--coordinator", caddr,
+                    "--host", "127.0.0.1", "--port", str(rport))
+        fleet.wait("the router serving", lambda: http_json(
+            url["router"] + "/api/health")[0]["ok"])
+
+        # every follower view (router, workers) holds the whole map
+        # before the timed windows: a view load parses the ~39 MB znode
+        def views():
+            got = {t: http_json(url[t] + "/api/router")[0]["placement"]
+                   .get("docs") for t in ("router", "worker0", "worker1")}
+            return got if all(v == n_docs for v in got.values()) else None
+        fleet.wait("every placement view", views)
+        res["views_synced_s"] = time.perf_counter() - t_boot
+        mem["router_up"] = card_memory_mib()
+        log(f"[fleet] leader elected {res['leader_up_s']:.1f}s after the "
+            f"coordinator started; workers restored and serving in "
+            f"{ {k: round(v, 2) for k, v in boot.items()} }s; leader "
+            f"adopted {n_docs} docs at {res['fleet_serving_s']:.1f}s, "
+            f"every placement view loaded at {res['views_synced_s']:.1f}s")
+
+        rng = np.random.default_rng(seed + 7)
+        queries = make_queries(rng, NS_VOCAB, FLEET_SPARSE)
+        staged = queries[:FLEET_STAGED]
+        http_json(url["leader"] + "/leader/start", {"query": staged[0]})
+
+        def window(name, target, qs, mode="sparse", fusion=None):
+            before = {t: metrics(t) for t in
+                      ("leader", "worker0", "worker1")}
+            if target == "router":
+                before["router"] = metrics("router")
+            with GpuSampler() as g, ViewAges({
+                    t: url[t] for t in ("router", "worker0",
+                                        "worker1")}) as ages:
+                replies, st = fleet_traffic(url[target], qs, mode, fusion)
+            after = {t: metrics(t) for t in before}
+
+            def delta(t, key):
+                return after[t].get(key, 0) - before[t].get(key, 0)
+
+            def window_ms(t, name):
+                n = delta(t, f"{name}_count")
+                return delta(t, f"{name}_sum_ms") / n if n else None
+            st["timings_ms"] = {
+                t: {nm: window_ms(t, nm) for nm in FLEET_TIMINGS[
+                    "worker" if t.startswith("worker") else t]}
+                for t in after}
+            st["device"] = g.result
+            st["view_age"] = ages.result
+            st["view_refreshes"] = {
+                t: delta(t, "router_view_refreshes") for t in after
+                if t != "leader"}
+            co = "router_scatter" if target == "router" else "scatter"
+            st["scatter_items_per_batch"] = (
+                delta(target, co + "_items")
+                / max(delta(target, co + "_batches"), 1))
+            st["scatter_batches"] = delta(target, co + "_batches")
+            st["result_cache_hits"] = delta(target, "cache_hits")
+            st["workers"] = {w: {
+                "batches": delta(w, "worker_batch_search_count"),
+                "query_items": delta(w, "query_items"),
+                "query_batches": delta(w, "query_batches"),
+                "ell_launches_v4": delta(w, "ell_kernel_launches_v4")}
+                for w in ("worker0", "worker1")}
+            if mode != "dense" and not all(
+                    v["ell_launches_v4"] > 0 for v in st["workers"].values()):
+                raise SystemExit(f"fleet {name}: a worker launched no ELL "
+                                 f"kernel: {st['workers']}")
+            log(f"[fleet] {name}: {st['queries']} queries, "
+                f"{st['qps']:.1f} q/s, p50 {st['p50_ms']:.2f} ms, p99 "
+                f"{st['p99_ms']:.2f} ms, {st['scatter_items_per_batch']:.1f} "
+                f"queries per worker batch, device {g.result}, placement "
+                f"view ages {ages.result}, workers "
+                f"{st['workers']}, cache hits {st['result_cache_hits']}, "
+                f"window mean ms {st['timings_ms']}")
+            res[name] = st
+            return replies
+
+        sparse = window("leader_sparse", "leader", queries)
+        dense = window("leader_dense", "leader", staged, "dense")
+        hybrid = window("leader_hybrid_rrf", "leader", staged, "hybrid",
+                        "rrf")
+        routed = window("router_sparse", "router", staged)
+        if routed != sparse[:FLEET_STAGED]:
+            bad = sum(a != b for a, b in zip(routed, sparse))
+            raise SystemExit(f"fleet: {bad} router replies differ from "
+                             f"the leader's")
+
+        t0 = time.perf_counter()
+        res["sparse_oracle"], s_swaps, s_top = fleet_sparse_oracle(
+            data["corpus"], shards, staged, sparse[:FLEET_STAGED])
+        res["dense_oracle"], d_swaps, d_top = fleet_dense_oracle(
+            data["rows"], staged, dense)
+        res["hybrid_oracle"] = fleet_hybrid_check(
+            hybrid, sparse, dense, s_top, d_top, s_swaps, d_swaps)
+        res["oracle_s"] = time.perf_counter() - t0
+        log(f"[fleet] oracles ({res['oracle_s']:.1f}s): sparse "
+            f"{res['sparse_oracle']}; dense {res['dense_oracle']}; hybrid "
+            f"{res['hybrid_oracle']}; router == leader on "
+            f"{len(routed)} queries")
+
+        # writes: new documents through the leader, then read them back
+        vocab_words = rng.zipf(1.25, size=(FLEET_UPLOADS, 60)) % NS_VOCAB
+        docs = [{"name": f"new{i}.txt",
+                 "text": f"fresh{i} " + " ".join(f"t{w}"
+                                                 for w in vocab_words[i])}
+                for i in range(FLEET_UPLOADS)]
+        t0 = time.perf_counter()
+        placed = {}
+        for lo in range(0, FLEET_UPLOADS, FLEET_UPLOAD_CHUNK):
+            out, _ = http_json(url["leader"] + "/leader/upload-batch",
+                               docs[lo:lo + FLEET_UPLOAD_CHUNK])
+            if out.get("errors") or out.get("skipped"):
+                raise SystemExit(f"fleet: upload-batch {out}")
+            for w, n in out["placed"].items():
+                placed[w] = placed.get(w, 0) + n
+        up_s = time.perf_counter() - t0
+        if sum(placed.values()) != FLEET_UPLOADS:
+            raise SystemExit(f"fleet: placed {placed}")
+        found, st = fleet_traffic(url["leader"],
+                                  [f"fresh{i}" for i in range(FLEET_UPLOADS)])
+        ryw_s = time.perf_counter() - t0
+        for i, r in enumerate(found):
+            if list(r)[:1] != [f"new{i}.txt"]:
+                raise SystemExit(f"fleet: fresh{i} found {r}")
+        res["upload"] = {"docs": FLEET_UPLOADS, "seconds": up_s,
+                         "docs_per_s": FLEET_UPLOADS / up_s,
+                         "placed": sorted(placed.values()),
+                         "upload_to_all_read_s": ryw_s,
+                         "read_back": st}
+        log(f"[fleet] upload-batch: {FLEET_UPLOADS} docs in {up_s:.2f}s = "
+            f"{FLEET_UPLOADS / up_s:.1f} docs/s, placed {placed}; all "
+            f"{FLEET_UPLOADS} read back through the leader "
+            f"{ryw_s:.2f}s after the first upload ({st['qps']:.1f} q/s, "
+            f"p99 {st['p99_ms']:.1f} ms)")
+
+        for tag in ("worker0", "worker1"):
+            cs = http_json(url[tag] + "/api/health")[0]["compute"]
+            served = metrics(tag).get("compute_fallback_served", 0)
+            if cs["state"] != "healthy" or cs["total_faults"] or served:
+                raise SystemExit(f"fleet: {tag} compute {cs}, fallback "
+                                 f"served {served}")
+        with open(os.path.join(root, "coordinator.log")) as f:
+            expired = f.read().count("reason=timeout")
+        if expired:
+            raise SystemExit(f"fleet: {expired} coordination sessions "
+                             f"expired during the phase")
+        mem["after_traffic"] = card_memory_mib()
+        # the CUDA processes: this one, the leader and the two workers;
+        # the coordinator and the router must not have touched the card
+        apps = smi_query("--query-compute-apps=pid,used_memory")
+        mem["compute_apps"] = len(apps.splitlines())
+        res["card_memory_used_mib"] = mem
+        if mem["compute_apps"] != 4:
+            raise SystemExit(f"fleet: {mem['compute_apps']} processes on "
+                             f"the card, expected 4:\n{apps}")
+        fleet.check_alive()
+        log(f"[fleet] every process alive; the card's memory.used (MiB) "
+            f"{mem}; workers healthy, no fault, no fallback-served "
+            f"request")
+    finally:
+        codes = fleet.stop()
+        logs = os.path.join(out_dir, "fleet_logs")
+        os.makedirs(logs, exist_ok=True)
+        for tag in fleet.procs:
+            shutil.copy(os.path.join(root, f"{tag}.log"), logs)
+    res["exit_codes"] = codes
+    if any(c != 0 for c in codes.values()):
+        raise SystemExit(f"fleet: exit codes {codes}")
+    log(f"[fleet] stopped by SIGTERM: {codes}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=SEED)
@@ -1731,8 +2441,15 @@ def main() -> int:
     try:
         worker = {"checkpoint": checkpoint_phase(ctx, main_res, args.work)}
         worker["compute"] = compute_phase(ctx)
+        # the fleet's two shard checkpoints, from phase 3's corpus
+        data = {"corpus": ctx["corpus"], "rows": ctx["rows"]}
         del ctx
+        torch.cuda.empty_cache()
+        shards = fleet_shards(data, args.work)
         durable = durable_phase(args.seed, args.work)
+        torch.cuda.empty_cache()
+        # ---- phase 7: the fleet, one process per node ----
+        fleet = fleet_phase(data, shards, args.seed, args.work, args.out)
     finally:
         shutil.rmtree(args.work, ignore_errors=True)
 
@@ -1753,7 +2470,7 @@ def main() -> int:
                    "topk": topk,
                    "main": main_res, "dense": dense, "text": text,
                    "worker": worker,
-                   "durable": durable,
+                   "durable": durable, "fleet": fleet,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

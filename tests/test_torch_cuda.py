@@ -356,3 +356,72 @@ def test_dense_column_on_card_matches_cpu(cuda):
                         chunk=chunk_rows(gpu._doc_cap, 1024, 10))
     torch.cuda.synchronize()
     assert torch.equal(packed, pack_topk(*exact_topk(full, n, k=10)))
+
+
+def test_fleet_on_card_answers_as_on_cpu(cuda, tmp_path):
+    """The port's own cluster plane in one process: a leader and two
+    workers whose engines run on the card, against the same fleet on the
+    CPU (each kernel's plain version). The same uploads and queries give
+    the same doc sets in every mode, scores within rel 1e-5 (the two
+    devices' f32 libms and matmuls may differ by an ulp), and no reply is
+    degraded. Imports only the port: this file runs where jax is absent."""
+    import json
+    import time
+    import urllib.request
+
+    from tfidf_tpu_torch.cluster.coordination import (CoordinationCore,
+                                                      LocalCoordination)
+    from tfidf_tpu_torch.cluster.node import SearchNode
+    from tfidf_tpu_torch.utils.config import Config
+
+    docs = [{"name": f"cu{i}.txt",
+             "text": f"common token{i} word{i % 3} extra{i % 5} "
+                     + "filler " * (i % 4)} for i in range(40)]
+    queries = ["common", "token3 word0", "word1 extra2", "common token7"]
+    modes = [{}, {"mode": "dense"}, {"mode": "hybrid", "fusion": "rrf"},
+             {"mode": "hybrid", "fusion": "wsum"}]
+
+    def post(url, body):
+        req = urllib.request.Request(
+            url, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60.0) as r:
+            return json.loads(r.read()), dict(r.headers)
+
+    def run(device):
+        core = CoordinationCore(session_timeout_s=2.0)
+        nodes = []
+        try:
+            for i in range(3):
+                cfg = Config(
+                    documents_path=str(tmp_path / device / f"n{i}" / "d"),
+                    index_path=str(tmp_path / device / f"n{i}" / "i"),
+                    port=0, top_k=16, result_cache_entries=0)
+                nodes.append(SearchNode(cfg, coord=LocalCoordination(
+                    core, 0.2), device=device).start())
+            deadline = time.monotonic() + 20.0
+            while (len(nodes[0].registry.get_all_service_addresses()) < 2
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            url = nodes[0].url
+            post(url + "/leader/upload-batch", docs)
+            out = {}
+            for q in queries:
+                for m in modes:
+                    got, hdrs = post(url + "/leader/start",
+                                     dict(m, query=q))
+                    assert "X-Scatter-Degraded" not in hdrs
+                    assert "X-Compute-Degraded" not in hdrs
+                    out[(q, json.dumps(m))] = got
+            return out
+        finally:
+            for n in nodes:
+                n.stop()
+            core.close()
+
+    on_card, on_cpu = run("cuda"), run("cpu")
+    for key, want in on_cpu.items():
+        got = on_card[key]
+        assert want and set(got) == set(want), key
+        for name, s in want.items():
+            assert got[name] == pytest.approx(s, rel=1e-5), (key, name)

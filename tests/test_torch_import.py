@@ -11,15 +11,15 @@ PKG = os.path.join(ROOT, "tfidf_tpu_torch")
 _IMPORT_ALL = r"""
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["tfidf_tpu"] = None    # and so does the reference package
 import importlib, pkgutil
 import tfidf_tpu_torch
 for m in pkgutil.walk_packages(tfidf_tpu_torch.__path__,
                                "tfidf_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules
-             if k == "jax" and sys.modules[k] is not None
-             or k.startswith(("jax.", "jaxlib", "tfidf_tpu."))
-             or k == "tfidf_tpu")
+             if k in ("jax", "tfidf_tpu") and sys.modules[k] is not None
+             or k.startswith(("jax.", "jaxlib", "tfidf_tpu.")))
 print("LOADED", len([k for k in sys.modules
                      if k.startswith("tfidf_tpu_torch")]))
 print("BAD", bad)
@@ -34,6 +34,17 @@ WORKER_MODULES = ("utils.faults", "utils.storage", "utils.device_nemesis",
                   "engine.compute_health", "engine.embedder", "engine.dense",
                   "ops.dense")
 
+# the cluster-and-CLI slice's modules
+CLUSTER_MODULES = ("cluster", "cluster.admission", "cluster.autopilot",
+                   "cluster.batcher", "cluster.coordination",
+                   "cluster.election", "cluster.ensemble", "cluster.fencing",
+                   "cluster.fusion", "cluster.nemesis", "cluster.node",
+                   "cluster.placement", "cluster.protover",
+                   "cluster.quarantine", "cluster.rebalance",
+                   "cluster.registry", "cluster.resilience",
+                   "cluster.router", "cluster.wal", "cluster.wire", "cli",
+                   "__main__")
+
 
 def test_whole_port_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -43,7 +54,7 @@ def test_whole_port_imports_with_jax_blocked():
     assert "BAD []" in r.stdout, r.stdout
     assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
     loaded = set(r.stdout.split("HAS")[1].split())
-    for mod in WORKER_MODULES:
+    for mod in WORKER_MODULES + CLUSTER_MODULES:
         assert f"tfidf_tpu_torch.{mod}" in loaded, mod
 
 
@@ -64,6 +75,24 @@ def test_worker_modules_import_with_jax_blocked():
                        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr
     assert r.stdout.split("\n")[:2] == ["[]", "False None"], r.stdout
+
+
+def test_cluster_modules_import_with_jax_blocked():
+    """Each module of the cluster plane and the CLI imports on its own
+    with ``jax`` and ``tfidf_tpu`` blocked, and importing them starts no
+    CLI run, builds no native library and touches no CUDA state."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['tfidf_tpu'] = None\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module('tfidf_tpu_torch.' + m)\n"
+            "import torch, tfidf_tpu_torch.native as n\n"
+            "print(n._lib, torch.cuda.is_initialized())\n")
+    r = subprocess.run([sys.executable, "-c", code, *CLUSTER_MODULES],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "None False", r.stdout
 
 
 def _imported_roots(path):

@@ -37,6 +37,7 @@ from tfidf_tpu_torch.ops.scoring import (QueryBatch, Segment,
                                          _compile_queries, bm25_weights,
                                          score_coo_compiled, tfidf_weights)
 from tfidf_tpu_torch.utils.device_nemesis import device_guard, poison_scores
+from tfidf_tpu_torch.utils.metrics import global_metrics
 
 
 @dataclass
@@ -287,7 +288,9 @@ def kernel_plan(u1: int, B: int, width: int) -> dict:
 
 
 # launches of the CUDA kernel per variant; only the CUDA branch of
-# score_block_kernel adds to these
+# score_block_kernel adds to these. The process's metrics registry counts
+# the same launches (``ell_kernel_launches_<variant>``), so a serving
+# node's ``/api/metrics`` shows how many its kernel took.
 launches = {"v3": 0, "v4": 0}
 
 
@@ -386,6 +389,7 @@ def score_block_kernel(imp_t: torch.Tensor,     # f32 [W, rows_cap]
         raise KernelLaunchError(f"ell_score launch returned CUDA error "
                                 f"{err}")
     launches[a_build] += 1
+    global_metrics.inc(f"ell_kernel_launches_{a_build}")
     return out
 
 

@@ -1,11 +1,19 @@
-"""Fault injection: named fault points a test or chaos harness can arm.
+"""Fault injection.
 
-A copy of ``tfidf_tpu/utils/faults.py`` holding the points this package
-fires: the checkpoint publish window, the durable-IO seam
-(:mod:`tfidf_tpu_torch.utils.storage`) and the device dispatch seams
-(:mod:`tfidf_tpu_torch.utils.device_nemesis`). The names are the JAX
-package's, so one chaos config arms both packages. Arming a name ending
-in ``*`` matches any point with that prefix.
+The reference tolerates faults (ZooKeeper ephemeral-node liveness, partial
+scatter-gather, ``Leader.java:67-69``) but has no way to *inject* them
+(SURVEY.md §5.3: "Fault injection: none"). This module adds that capability:
+named fault points are sprinkled through the control plane (worker RPC,
+heartbeat, checkpoint write) and a test/chaos harness can arm them to raise,
+delay, or drop with a given probability.
+
+Every fault point in the tree is declared in :data:`KNOWN_FAULT_POINTS`
+(``tfidf_tpu_torch faults list`` prints it) so chaos configs can be validated
+against the code instead of silently going stale; a tier-1 test greps the
+sources and fails if a ``check()`` site is missing from the registry.
+Arming a name ending in ``*`` matches any point with that prefix (e.g.
+``coord.heartbeat.*`` covers the per-session server-side heartbeat
+points) — fires are counted under the wildcard rule's name.
 """
 
 from __future__ import annotations
@@ -17,8 +25,58 @@ from dataclasses import dataclass
 
 from tfidf_tpu_torch.utils.tracing import span_event
 
-# Registry of every fault point this package fires: name -> where.
+# Registry of every fault point compiled into the tree: name -> where it
+# fires. Dynamic per-instance points are declared with a ``*`` suffix.
 KNOWN_FAULT_POINTS: dict[str, str] = {
+    "leader.worker_rpc": "leader scatter RPC to one worker "
+                         "(per-query and batched paths)",
+    "leader.size_poll": "leader polling one worker's /worker/index-size",
+    "leader.reconcile_rpc": "leader's /worker/delete rejoin-reconcile RPC",
+    "leader.sweep": "one reconciliation-sweep pass on the leader",
+    "leader.replica_rpc": "leader re-issuing an orphaned ownership slice "
+                          "to a surviving replica (failover scatter read)",
+    "leader.hedge": "leader dispatching a hedged duplicate read for a "
+                    "laggard worker's ownership slice",
+    "leader.repair": "one anti-entropy replication-repair pass on the "
+                     "leader (restore R / trim over-replication)",
+    "leader.placement_persist": "leader persisting the placement map to "
+                                "the coordination substrate",
+    "leader.rebalance_copy": "rebalancer about to copy a migrating doc "
+                             "range to its targets (pre-copy crash "
+                             "window: ownership has not moved)",
+    "leader.rebalance_flip": "rebalancer about to atomically flip "
+                             "ownership of a copied range (pre-flip "
+                             "crash window: the copy legs are plain "
+                             "over-replication)",
+    "leader.rebalance_reconcile": "rebalancer about to trigger the "
+                                  "reconcile deletes after a durable "
+                                  "flip (failure retried by the sweep)",
+    "leader.admission": "front-door admission decision for one "
+                        "/leader/* request (arm to chaos-test the "
+                        "shed path itself)",
+    "leader.autopilot": "one SLO-autopilot control pass on the leader "
+                        "(arm to chaos-test the sweep loop's tolerance "
+                        "of a failing controller)",
+    "worker.process": "worker handling /worker/process[-batch]",
+    "worker.upload": "worker handling /worker/upload[-batch]",
+    "worker.fence": "worker checking a mutating RPC's X-Leader-Epoch "
+                    "against its durable fence (arm to chaos-test the "
+                    "fence path itself)",
+    "router.view_refresh": "a placement follower view (router / "
+                           "any-node read plane) about to re-arm its "
+                           "watch and re-read the placement znode",
+    "router.write_proxy": "a router (or non-leader node) about to "
+                          "forward a front-door mutation to the "
+                          "elected leader",
+    "coord.heartbeat.*": "coordination server receiving a session "
+                         "heartbeat (suffix: session id)",
+    "coord.heartbeat_send": "coordination client sending a heartbeat",
+    "coord.long_poll": "coordination client's event long-poll",
+    "resilience.backoff": "retry policy about to sleep a backoff delay",
+    "resilience.breaker_trip": "circuit breaker transitioning to open "
+                               "(observe-only: armed raise is swallowed)",
+    "resilience.breaker_probe": "circuit breaker admitting a half-open "
+                                "probe (observe-only)",
     "checkpoint.pre_publish": "checkpoint written but not yet published "
                               "(crash window)",
     "storage.write": "durable-IO seam about to write a file's bytes "
@@ -30,11 +88,27 @@ KNOWN_FAULT_POINTS: dict[str, str] = {
                     "unless a checksum catches it)",
     "storage.rename": "durable-IO seam about to atomically publish "
                       "via rename (crash-before/after-rename window)",
+    "wal.append": "coordination WAL about to frame+write an entry batch "
+                  "(failure = write not acknowledged)",
+    "wal.fsync": "coordination WAL about to fsync appended entries",
+    "wal.snapshot": "coordination snapshot about to be written "
+                    "(pre-atomic-rename crash window)",
     "device.score_ell": "ELL scoring dispatch seam (ops/ell.py "
                         "score_ell_batch) — the device nemesis' primary "
                         "injection point",
+    "device.score_segments": "segmented scoring dispatch seam "
+                             "(ops/ell.py score_segments_batch; hot "
+                             "pass, cold walk, and parity oracle)",
     "device.score_coo": "COO scoring dispatch seam "
                         "(ops/scoring.py score_coo_batch)",
+    "device.dense": "dense-plane dispatch seam (ops/dense.py "
+                    "dense_scores / packed_dense_topk)",
+    "device.upload": "tiering upload ring about to move one cold "
+                     "segment host->HBM (engine/tiering.py)",
+    "ensemble.vote": "ensemble member handling a RequestVote RPC",
+    "ensemble.replicate_append.*": "ensemble leader about to send "
+                                   "AppendEntries/InstallSnapshot to one "
+                                   "peer (suffix: peer node id)",
 }
 
 
@@ -82,8 +156,6 @@ class FaultInjector:
         return None
 
     def check(self, point: str) -> None:
-        if not self._rules:   # unarmed: one emptiness check, no lock
-            return
         with self._lock:
             hit = self._match(point)
             if hit is None:
@@ -100,6 +172,10 @@ class FaultInjector:
             # configs can assert totals without enumerating instances
             self.fired[key] = self.fired.get(key, 0) + 1
             action, delay_s, fn = rule.action, rule.delay_s, rule.fn
+        # every fault fire is visible in traces BY CONSTRUCTION: the one
+        # emission here covers all fault_point()/check() sites (enforced
+        # by the graftcheck registry-drift pass), so a chaos run's trace
+        # shows exactly where the injected failure entered the request
         span_event("fault_injected", point=point, rule=key,
                    action=action)
         if action == "delay":

@@ -1,28 +1,54 @@
 """Durable-IO seam + scriptable disk nemesis.
 
-A copy of the seam part of ``tfidf_tpu/utils/storage.py``: every durable
-byte of this package (uploaded documents, checkpoint files) goes through
-these primitives, each instrumented with a ``storage.*`` fault point
-(:mod:`tfidf_tpu_torch.utils.faults`) and consulted against the
-:class:`StorageNemesis` rule table.
+The reference's durability unit is the disk: Lucene commits checksummed
+segment files and publishes them atomically on every upload
+(``Worker.java:138``, PAPER.md §7). Until this module, the framework's
+durable surfaces each rolled their own write path — ``save_checkpoint``
+wrote straight into the final version dir, the fence sidecar and the
+``placed_docs`` store were plain ``open``+``os.replace``, and nothing
+outside the coordination WAL carried a checksum — so a torn write, a
+flipped bit, or a disk that lies on ``fsync`` could silently change
+search results after a restart.
+
+This is the one seam every durable byte now goes through:
 
 - :func:`write_bytes` / :func:`savez` / :func:`read_bytes` /
   :func:`fsync_path` / :func:`fsync_dir` / :func:`replace` — the
-  primitive ops;
-- :func:`atomic_write_bytes` / :func:`atomic_write_json` — temp file ->
-  write -> fsync file -> atomic rename -> fsync dir; the JSON form wraps
-  the payload in a CRC32 envelope;
+  primitive ops, each instrumented with a ``storage.*`` fault point
+  (``utils.faults``) AND consulted against the :class:`StorageNemesis`
+  rule table, so chaos tests script per-path disk faults without
+  monkeypatching a single call site (the disk twin of
+  ``cluster/nemesis.py``'s network shim);
+- :func:`atomic_write_bytes` / :func:`atomic_write_json` — temp file →
+  write → fsync file → atomic rename → fsync dir, the only publish
+  discipline a crash cannot tear; the JSON form wraps the payload in a
+  CRC32 envelope (legacy un-checksummed files are still readable) so
+  bit rot is *detected* instead of silently parsed — a flipped digit
+  in a fence epoch parses fine and fences wrong;
 - :func:`write_manifest` / :func:`verify_manifest` — a per-directory
-  CRC32+size manifest, the load-time integrity gate of a checkpoint
-  version;
-- :func:`publish_dir` — build dir -> fsync every file -> fsync dir ->
-  atomic rename into the final versioned name -> fsync parent;
-- :class:`GroupCommitter` — cross-thread group commit of fsyncs, the
-  fsync-before-ack upload contract without one fsync convoy per request.
+  CRC32+size manifest covering every file of a checkpoint version, the
+  load-time integrity gate behind checkpoint fallback/quarantine;
+- :func:`publish_dir` — build-dir → fsync every file → fsync dir →
+  atomic rename into the final versioned name → fsync parent: a
+  version directory either exists complete or not at all;
+- :class:`GroupCommitter` — cross-thread group commit of fsyncs: the
+  fsync-before-ack upload contract without one fsync syscall convoy
+  per concurrent request (concurrent commits coalesce into shared
+  flush rounds, the coalescer discipline applied to durability);
+- :class:`CrcLedger` — name → CRC32 record for a store of raw
+  documents (the leader's ``placed_docs``), the reference the
+  integrity scrub verifies replicas against;
+- :class:`RequestLog` — the durable traffic-capture log (admitted
+  ``/leader/start`` queries + arrival offsets + lanes), CRC-framed
+  per line so a torn tail truncates cleanly; ``bench.py --replay``
+  replays it as production-shaped load.
 
-Rules are scriptable in-process (``global_storage.arm(...)``) and via the
-``TFIDF_STORAGE_NEMESIS`` env var (a JSON rule list). Injected faults are
-real ``OSError`` s with real ``errno`` s (:class:`DiskFault`).
+Nemesis rules are scriptable in-process (``global_storage.arm(...)``)
+and via the ``TFIDF_STORAGE_NEMESIS`` env var (a JSON rule list) so
+subprocess chaos clusters (``make chaos-powerloss``) boot with the disk
+already hostile. Injected faults are real ``OSError`` s with real
+``errno`` s (:class:`DiskFault`), so every existing classifier treats
+them exactly like the hardware failure they model.
 """
 
 from __future__ import annotations
@@ -33,6 +59,7 @@ import json
 import os
 import random
 import threading
+import time
 import zlib
 
 from tfidf_tpu_torch.utils.faults import global_injector
@@ -43,6 +70,11 @@ from tfidf_tpu_torch.utils.tracing import span_event
 log = get_logger("utils.storage")
 
 MANIFEST_NAME = "MANIFEST.json"
+
+# the distinct wire status for a full disk (satellite contract: an
+# ENOSPC on upload/checkpoint is an ENVIRONMENT condition — classified
+# non-retryable, never a worker fault, never a breaker trip)
+STORAGE_FULL_STATUS = 507
 
 # nemesis fault kinds
 TORN_WRITE = "torn_write"          # partial bytes land, then EIO
@@ -197,6 +229,10 @@ def _enospc_seen(e: BaseException) -> None:
         global_metrics.inc("storage_enospc")
 
 
+def is_enospc(e: BaseException) -> bool:
+    return isinstance(e, OSError) and e.errno == errno.ENOSPC
+
+
 # ---------------------------------------------------------------------------
 # seam primitives
 # ---------------------------------------------------------------------------
@@ -262,6 +298,28 @@ def read_bytes(path: str) -> bytes:
         i = rule.keep_bytes % len(data)
         data = data[:i] + bytes([data[i] ^ 0x5A]) + data[i + 1:]
     return data
+
+
+def read_memmap(path: str, dtype, shape: tuple):
+    """Map a durable array file read-only through the seam — the cold
+    postings tier (``engine/tiering.py``): the OS page cache IS the
+    host-RAM tier, so a fault-in touches only the pages the device
+    upload actually streams. Integrity is the caller's manifest gate
+    (``verify_manifest`` BEFORE mapping — its ``file_crc`` pass is a
+    read-seam site, so armed bit rot is detected there); a rule that
+    matches here anyway degrades the map to a damaged in-memory copy,
+    keeping the chaos contract (injected rot is observable, never
+    silently bypassed) even for callers that skip the gate."""
+    import numpy as np
+    global_injector.check("storage.read")
+    mm = np.memmap(path, dtype=dtype, mode="r", shape=shape)
+    rule = global_storage.match("read", path)
+    if rule is not None and mm.size:
+        buf = np.array(mm)          # materialize, then flip one byte
+        flat = buf.view(np.uint8).reshape(-1)
+        flat[rule.keep_bytes % flat.shape[0]] ^= 0x5A
+        return buf
+    return mm
 
 
 def fsync_path(path: str) -> None:
@@ -600,3 +658,175 @@ class GroupCommitter:
 # exactly the sharing that makes group commit pay: concurrent upload
 # handler threads (even across in-process test nodes) coalesce.
 global_committer = GroupCommitter()
+
+
+# ---------------------------------------------------------------------------
+# CRC ledger (integrity-scrub reference)
+# ---------------------------------------------------------------------------
+
+class CrcLedger:
+    """name → CRC32 of a raw-document store, persisted as a checksummed
+    atomic JSON file. The integrity scrub verifies the store's current
+    bytes against this record — without an independent record, bit rot
+    in a stored document is undetectable (the bytes are their own only
+    witness). Flushes are debounced by the caller (the sweep loop);
+    entries recorded after the last flush are simply unverifiable until
+    the next one, which the scrub skips rather than guesses about."""
+
+    def __init__(self, path: str) -> None:
+        self._path = path
+        self._lock = threading.Lock()
+        self._dirty = False
+        self._map: dict[str, int] = {}
+        try:
+            if os.path.exists(path):
+                got = read_json(path)
+                if isinstance(got, dict):
+                    self._map = {str(k): int(v) for k, v in got.items()}
+        except (ValueError, OSError) as e:
+            # an unreadable ledger means nothing can be verified until
+            # re-recorded — loud, never fatal (the store itself is fine)
+            log.warning("crc ledger unreadable; starting empty",
+                        path=path, err=repr(e))
+
+    def record(self, name: str, crc: int) -> None:
+        with self._lock:
+            self._map[name] = crc
+            self._dirty = True
+
+    def forget(self, name: str) -> None:
+        with self._lock:
+            if self._map.pop(name, None) is not None:
+                self._dirty = True
+
+    def get(self, name: str) -> int | None:
+        with self._lock:
+            return self._map.get(name)
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return list(self._map)
+
+    def flush(self, fsync: bool = True) -> bool:
+        with self._lock:
+            if not self._dirty:
+                return False
+            snapshot = dict(self._map)
+            self._dirty = False
+        try:
+            atomic_write_json(self._path, snapshot, fsync=fsync)
+        except OSError as e:
+            with self._lock:
+                self._dirty = True   # retry at the next flush
+            log.warning("crc ledger flush failed", err=repr(e))
+            return False
+        return True
+
+
+# ---------------------------------------------------------------------------
+# traffic capture — the replayable request log
+# ---------------------------------------------------------------------------
+
+class RequestLog:
+    """Durable, replayable capture of front-door search traffic: one
+    record per ADMITTED ``/leader/start`` request — query text, arrival
+    offset (monotonic seconds since the log opened), admission lane,
+    and client id — so perf claims can replay production-shaped
+    traffic instead of synthetic zipf (``bench.py --replay``).
+
+    Framing is the WAL's discipline applied to capture: each record is
+    one ``<crc32-hex> <compact-json>\\n`` line over an append handle
+    held by this class (the capture log IS the seam for its own
+    CRC-framed lines, the ``cluster/wal.py`` precedent — pinned in the
+    graftcheck storageseam allowlist), and :meth:`read` stops at the
+    first frame whose CRC fails, so a torn tail (or injected bit rot —
+    reads go through :func:`read_bytes`) truncates cleanly instead of
+    replaying a damaged query. Appends are buffered with a periodic
+    flush; :meth:`flush`/:meth:`close` drive the buffered tail through
+    the same fsync fault point the rest of the seam uses. Capture is an
+    observability artifact, not acked state — flush-on-close is the
+    durability contract, not fsync-before-ack."""
+
+    _FLUSH_EVERY = 256
+
+    def __init__(self, path: str, max_entries: int = 100000) -> None:
+        self._path = path
+        self._lock = threading.Lock()
+        self._max = max(0, int(max_entries))
+        self._count = 0
+        self._t0 = time.monotonic()
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self._f = open(path, "ab")
+
+    @property
+    def path(self) -> str:
+        return self._path
+
+    def record(self, query: str, lane: str, client: str = "") -> bool:
+        """Append one admitted request; False once the entry bound is
+        reached (bounded like the trace ring) or the log is closed."""
+        line = json.dumps(
+            {"t": round(time.monotonic() - self._t0, 6),
+             "query": query, "lane": lane, "client": client},
+            separators=(",", ":")).encode("utf-8")
+        framed = b"%08x %s\n" % (zlib.crc32(line) & 0xFFFFFFFF, line)
+        with self._lock:
+            if self._f is None or self._count >= self._max:
+                return False
+            self._count += 1
+            try:
+                self._f.write(framed)
+                if self._count % self._FLUSH_EVERY == 0:
+                    self._f.flush()
+            except OSError as e:
+                _enospc_seen(e)
+                log.warning("request-log append failed", err=repr(e))
+                return False
+        global_metrics.inc("capture_records")
+        return True
+
+    def flush(self, fsync: bool = True) -> None:
+        """Drive the buffered tail to disk (the fsync-EIO fault point,
+        like every seam fsync)."""
+        with self._lock:
+            if self._f is None:
+                return
+            self._f.flush()
+            if fsync:
+                global_injector.check("storage.fsync")
+                if global_storage.match("fsync", self._path) is not None:
+                    raise DiskFault(errno.EIO, "injected: fsync failed",
+                                    self._path)
+                os.fsync(self._f.fileno())
+                global_metrics.inc("storage_fsyncs")
+
+    def close(self) -> None:
+        try:
+            self.flush(fsync=True)
+        except OSError as e:
+            log.warning("request-log flush-on-close failed", err=repr(e))
+        with self._lock:
+            if self._f is not None:
+                self._f.close()
+                self._f = None
+
+    @staticmethod
+    def read(path: str) -> list[dict]:
+        """Decode a captured log: every intact record in arrival order,
+        truncated cleanly at the first frame whose CRC fails (torn
+        tail / bit rot — reads go through the seam, so the disk
+        nemesis can damage them and this contract is testable)."""
+        out: list[dict] = []
+        for line in read_bytes(path).splitlines():
+            if not line.strip():
+                continue
+            try:
+                crc_hex, payload = line.split(b" ", 1)
+                if int(crc_hex, 16) != (zlib.crc32(payload) & 0xFFFFFFFF):
+                    break
+                out.append(json.loads(payload.decode("utf-8")))
+            except ValueError:
+                break
+        return out
