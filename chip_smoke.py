@@ -88,6 +88,25 @@ beside it. Phases (any failure fails the run):
    per-process memory in a container; exactly four processes may hold a
    CUDA context: this one, the leader, the workers) and its
    ``utilization.gpu`` (10 Hz) over each window.
+8. streaming segments and tiering at BASELINE config 4's shape (runs after
+   phase 6, before the fleet): (a) phase 3's corpus streamed through
+   ``add_document_arrays`` into ``index_mode="segments"`` (the default
+   ``max_segments``, ``merge_workers`` and ``sync_merge_nnz``, batch 64,
+   the dense plane off, the 500k vocabulary registered first), a commit
+   every 10,000 docs, a quiesce as ``bench.py`` does, then 1% of the docs
+   deleted and another 1% upserted with new content: docs/s, commit
+   p50/p99/max (the first apart), merges inline and background, the share
+   of commits with a merge in flight, device memory; the incremental df
+   equal to a recompute over the segments; 512 of phase 3's queries
+   through ``search_batch`` and ``search_batch_arrays``, their top-10 held
+   to a scipy oracle over the live docs (tombstone-inclusive statistics);
+   one batch's ms split; the segment scorer (torch ops) on a 512-query
+   batch beside its bound and phase 3's kernel time; (b) the engine saved
+   (``segstate.npz``) and restored into a tiered engine (the default 512
+   MB budget, ring depth 2; the phase fails with no cold segment), the
+   same queries tiered and through ``tier_bypass``: hits and values
+   identical to the bit to each other and to 8a's; then one injected
+   ``upload:transient``, which must surface, and a clean batch unchanged.
 
 After every phase with nothing armed, each engine's compute health must
 be healthy with no new fault and no fallback-served request.
@@ -516,67 +535,93 @@ def check_embedding(rows, corpus, embedder, rng, n: int = 2000) -> int:
     return n
 
 
-def oracle_check(corpus, queries, hits, vocab: int, doc_names) -> dict:
+def oracle_check(corpus, queries, hits, vocab: int, doc_names, *,
+                 stats=None, names=None) -> dict:
     """Top-10 of the port against a scipy CSR oracle with independently
     computed f64 BM25 impacts. Equal scores rank by the engine's row order
     (``doc_names``, the commit layout), as the engine breaks ties. Ids
     must be identical, except inside a tie group — oracle scores within
     1e-6 relative — where the f32 sum (its association follows each
     row's term positions) decides the order; such swaps pass and are
-    counted. Scores within 1e-5 relative."""
+    counted. Scores within 1e-5 relative.
+
+    ``names`` names the corpus's docs (default ``d<row>``); a hit whose
+    name is not among them (a deleted doc) fails. ``stats`` = (df [vocab],
+    N, avgdl) are the collection statistics to score with (default: the
+    corpus's own) — a streaming index counts tombstoned docs until their
+    segment merges."""
     import scipy.sparse as sp
     offsets, ids, tfs, lengths = corpus
     n_docs = offsets.shape[0] - 1
     row = np.repeat(np.arange(n_docs), np.diff(offsets))
-    df = np.bincount(ids, minlength=vocab).astype(np.float64)
-    avgdl = lengths.astype(np.float64).mean()
+    if stats is None:
+        df = np.bincount(ids, minlength=vocab).astype(np.float64)
+        n_stat, avgdl = n_docs, lengths.astype(np.float64).mean()
+    else:
+        df, n_stat, avgdl = stats
     k1, b = 1.2, 0.75
-    idf = np.log1p((n_docs - df + 0.5) / (df + 0.5))
+    idf = np.log1p((n_stat - df + 0.5) / (df + 0.5))
     imp = idf[ids] * tfs / (tfs + k1 * (1 - b + b * lengths[row] / avgdl))
-    M = sp.csr_matrix((imp, (row, ids.astype(np.int64))),
+    # by term: a query's scores are the sum of its terms' columns
+    M = sp.csc_matrix((imp, (row, ids.astype(np.int64))),
                       shape=(n_docs, vocab))
-    qrows, qcols, qvals = [], [], []
-    for i, q in enumerate(queries):
+    if names is None:
+        row_of = np.empty(n_docs, np.int64)
+        row_of[[int(n[1:]) for n in doc_names]] = np.arange(n_docs)
+        index_of = lambda nm: int(nm[1:])      # noqa: E731
+    else:
+        pos = {nm: r for r, nm in enumerate(doc_names)}
+        row_of = np.fromiter((pos[nm] for nm in names), np.int64, n_docs)
+        index_of = dict(zip(names, range(n_docs))).__getitem__
+    swaps = {"exact_f64_tie": 0, "near_tie": 0}
+    for i, (q, got) in enumerate(zip(queries, hits)):
         terms, counts = np.unique([int(t[1:]) for t in q.split()],
                                   return_counts=True)
-        qrows += [i] * len(terms)
-        qcols += terms.tolist()
-        qvals += counts.astype(np.float64).tolist()
-    Q = sp.csr_matrix((qvals, (qrows, qcols)), shape=(len(queries), vocab))
-    S = (Q @ M.T).toarray()
-    row_of = np.empty(n_docs, np.int64)
-    row_of[[int(n[1:]) for n in doc_names]] = np.arange(n_docs)
-    swaps = {"exact_f64_tie": 0, "near_tie": 0}
-    for i, got in enumerate(hits):
-        s = S[i]
-        order = np.lexsort((row_of, -s))[:TOP_K]
-        order = order[s[order] > 0]
-        got_ids = np.asarray([int(h.name[1:]) for h in got])
-        got_sc = np.asarray([h.score for h in got])
-        # the engine's own f32 order: scores never rise, and equal scores
-        # come in ascending snapshot row order
-        d = np.diff(got_sc)
-        rows = row_of[got_ids]
-        if (d > 0).any() or ((d == 0) & (np.diff(rows) <= 0)).any():
-            raise SystemExit(f"oracle: query {i} breaks the tie rule: "
-                             f"{list(zip(got_sc.tolist(), rows.tolist()))}")
-        if got_ids.shape != order.shape:
-            raise SystemExit(f"oracle: query {i} has {len(got_ids)} hits, "
-                             f"oracle {len(order)}")
-        np.testing.assert_allclose(got_sc, s[got_ids], rtol=1e-5,
-                                   err_msg=f"oracle: query {i} scores")
-        np.testing.assert_allclose(got_sc, s[order], rtol=1e-5,
-                                   err_msg=f"oracle: query {i} top-k")
-        for r in np.flatnonzero(got_ids != order):
-            a, c = s[got_ids[r]], s[order[r]]
-            if abs(a - c) > 1e-6 * max(abs(c), 1e-30):
-                raise SystemExit(f"oracle: query {i} rank {r}: port "
-                                 f"d{got_ids[r]} ({a}) vs oracle "
-                                 f"d{order[r]} ({c})")
-            swaps["exact_f64_tie" if a == c else "near_tie"] += 1
+        s = np.zeros(n_docs)
+        for t, c in zip(terms.tolist(), counts.tolist()):
+            col = slice(M.indptr[t], M.indptr[t + 1])
+            s[M.indices[col]] += c * M.data[col]
+        _hold_query(i, s, got, row_of, index_of, swaps)
     ranks = sum(len(h) for h in hits)
     return {"queries": len(hits), "ranks": ranks,
             "ids_identical": ranks - sum(swaps.values()), "swaps": swaps}
+
+
+def _hold_query(i, s, got, row_of, index_of, swaps) -> None:
+    """One query's served top-k against its oracle scores ``s``: the
+    (-score, row) order over the docs scoring at least the k-th largest
+    score (the full sort's first k, without sorting every doc)."""
+    cand = np.flatnonzero(s >= -np.partition(-s, TOP_K - 1)[TOP_K - 1]) \
+        if s.shape[0] > TOP_K else np.arange(s.shape[0])
+    order = cand[np.lexsort((row_of[cand], -s[cand]))][:TOP_K]
+    order = order[s[order] > 0]
+    try:
+        got_ids = np.asarray([index_of(h.name) for h in got], np.int64)
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"oracle: query {i} returned a doc outside the "
+                         f"live corpus: {e}")
+    got_sc = np.asarray([h.score for h in got])
+    # the engine's own f32 order: scores never rise, and equal scores
+    # come in ascending snapshot row order
+    d = np.diff(got_sc)
+    rows = row_of[got_ids]
+    if (d > 0).any() or ((d == 0) & (np.diff(rows) <= 0)).any():
+        raise SystemExit(f"oracle: query {i} breaks the tie rule: "
+                         f"{list(zip(got_sc.tolist(), rows.tolist()))}")
+    if got_ids.shape != order.shape:
+        raise SystemExit(f"oracle: query {i} has {len(got_ids)} hits, "
+                         f"oracle {len(order)}")
+    np.testing.assert_allclose(got_sc, s[got_ids], rtol=1e-5,
+                               err_msg=f"oracle: query {i} scores")
+    np.testing.assert_allclose(got_sc, s[order], rtol=1e-5,
+                               err_msg=f"oracle: query {i} top-k")
+    for r in np.flatnonzero(got_ids != order):
+        a, c = s[got_ids[r]], s[order[r]]
+        if abs(a - c) > 1e-6 * max(abs(c), 1e-30):
+            raise SystemExit(f"oracle: query {i} rank {r}: port "
+                             f"doc {got_ids[r]} ({a}) vs oracle "
+                             f"doc {order[r]} ({c})")
+        swaps["exact_f64_tie" if a == c else "near_tie"] += 1
 
 
 def drive(engine, queries, chunks_arrays) -> tuple:
@@ -1702,6 +1747,416 @@ def durable_phase(seed: int, work: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 8: streaming segments and tiering at config 4's shape
+# --------------------------------------------------------------------------
+
+ST_COMMIT_EVERY = 10_000       # bench.py's config 4 shape: commit per 10k
+ST_BATCH = 64                  # bench.py's config 4 query batch
+ST_QUERIES = 512               # phase 3's queries served in phase 8
+ST_MUTATE = 0.01               # share of docs deleted, and another upserted
+# f32 operations the BM25 weight of one posting takes in
+# ops/scoring.bm25_weights (idf: 5, norm: 4, tf + norm, idf * tf, divide)
+BM25_WEIGHT_OPS = 12
+
+
+def _gather_docs(corpus, rows: np.ndarray):
+    """The postings of corpus docs ``rows`` as a corpus of their own."""
+    offsets, ids, tfs, lengths = corpus
+    lens = np.diff(offsets)[rows]
+    starts = offsets[:-1][rows]
+    pos = (np.arange(int(lens.sum()), dtype=np.int64)
+           - np.repeat(np.cumsum(lens) - lens, lens)
+           + np.repeat(starts, lens))
+    return (np.concatenate([[0], np.cumsum(lens)]), ids[pos], tfs[pos],
+            lengths[rows])
+
+
+def _concat_corpora(a, b):
+    return (np.concatenate([a[0], b[0][1:] + a[0][-1]]),
+            np.concatenate([a[1], b[1]]), np.concatenate([a[2], b[2]]),
+            np.concatenate([a[3], b[3]]))
+
+
+def _segment_stats(index, vocab: int):
+    """Tombstone-inclusive df, N and avgdl recomputed in f64 from every
+    segment's retained host postings (what the index must score with:
+    a tombstoned doc counts until its segment merges)."""
+    df = np.zeros(vocab, np.float64)
+    n, total = 0, 0.0
+    for seg in index._segments:
+        t = np.concatenate([d.term_ids for d in seg.host_docs])
+        df += np.bincount(t, minlength=vocab)[:vocab]
+        n += seg.n_docs
+        total += float(np.asarray(seg.raw_len, np.float64).sum())
+    return df, float(n), total / n
+
+
+def _hits_key(hits) -> list:
+    return [[(h.name, h.score) for h in hs] for hs in hits]
+
+
+def _arrays_live(arrays) -> list:
+    """(name, value bits) of the live entries of search_batch_arrays."""
+    vals, ids, _kk, names = arrays
+    return [[(names[int(i)], v.tobytes()) for v, i in zip(vr, ir) if v > 0]
+            for vr, ir in zip(vals, ids)]
+
+
+def segment_scorer_times(engine, queries) -> dict:
+    """The segment scorer (torch ops, no kernel) on one 512-query batch
+    over the streaming snapshot: device ms (CUDA events), and its bound —
+    bytes: each live posting's tf and term and each live row's length
+    once, the batch's slot map, df and query weights once, the scores
+    written once; operations: the BM25 weight of every live posting and a
+    multiply and an add for each (posting, query) pair whose query weight
+    is not zero."""
+    from tfidf_tpu_torch.ops.ell import score_segments_impl
+    s = engine.searcher
+    snap = engine.index.snapshot
+    qb, _ = s._vectorize(queries, len(queries))
+    B = qb.slots.shape[0]
+    kw = engine.model.score_kwargs()
+
+    def run():
+        return score_segments_impl(snap.views, snap.df, qb, snap.n_docs,
+                                   snap.avgdl, **kw)
+
+    ms = cuda_ms(run, reps=3)
+    # per-term count of queries with a nonzero weight, on the host
+    w = qb.weights.cpu().numpy()
+    slots = qb.slots.cpu().numpy()
+    qnnz_slot = np.zeros(qb.uniq.shape[0] + 1, np.int64)
+    for row_s, row_w in zip(slots, w):
+        qnnz_slot[np.unique(row_s[row_w > 0])] += 1
+    qnnz = np.zeros(snap.df.shape[0], np.int64)
+    qnnz[qb.uniq_host] = qnnz_slot[:qb.n_uniq]
+    postings = rows = products = 0
+    for seg in engine.index._segments:
+        live = [d for d, a in zip(seg.host_docs, seg.live) if a]
+        t = np.concatenate([d.term_ids for d in live])
+        postings += t.shape[0]
+        rows += len(live)
+        products += int(qnnz[t].sum())
+    n_out = int(snap.num_docs)
+    nbytes = (8 * postings + 4 * rows + 4 * 2 * snap.df.shape[0]
+              + 4 * (qb.uniq.shape[0] + 1) * B + 4 * B * n_out)
+    ops = BM25_WEIGHT_OPS * postings + 2 * products + B * n_out
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_UNFUSED_OPS_PER_S * 1e3
+    return {"ms": ms, "batch": B, "postings": postings,
+            "products": products, "bytes": nbytes, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "x_bound": ms / max(t_bytes, t_ops)}
+
+
+def streaming_breakdown(engine, queries) -> dict:
+    """Per-phase ms of one ``ST_BATCH`` batch through the untiered
+    segmented path, each phase closed by a synchronize."""
+    from tfidf_tpu_torch.ops.ell import score_segments_batch
+    from tfidf_tpu_torch.ops.topk import fetch_packed, packed_topk_chunked
+    s = engine.searcher
+    snap = engine.index.snapshot
+    sync()
+    t = [time.perf_counter()]
+    qb, _ = s._vectorize(queries, ST_BATCH)
+    sync()
+    t.append(time.perf_counter())
+    scores = score_segments_batch(snap.views, snap.df, qb, snap.n_docs,
+                                  snap.avgdl, **engine.model.score_kwargs())
+    sync()
+    t.append(time.perf_counter())
+    packed = packed_topk_chunked(scores, snap.num_docs, k=TOP_K)
+    sync()
+    t.append(time.perf_counter())
+    fetch_packed(packed)
+    t.append(time.perf_counter())
+    return {n: (t[i + 1] - t[i]) * 1e3 for i, n in
+            enumerate(("vectorize", "score", "topk", "fetch"))}
+
+
+def serve_segments(engine, queries) -> tuple:
+    """``search_batch`` and ``search_batch_arrays`` over ``queries``, each
+    closed by a synchronize: (hits, arrays, q/s of each)."""
+    sync()
+    t0 = time.perf_counter()
+    hits = engine.search_batch(queries, k=TOP_K)
+    sync()
+    t1 = time.perf_counter()
+    arrays = engine.search_batch_arrays(queries, k=TOP_K)
+    sync()
+    t2 = time.perf_counter()
+    if _arrays_live(arrays) != [[(h.name, np.float32(h.score).tobytes())
+                                 for h in hs] for hs in hits]:
+        raise SystemExit("streaming: search_batch_arrays differs from "
+                         "search_batch")
+    return hits, arrays, {"search_batch": len(queries) / (t1 - t0),
+                          "search_batch_arrays": len(queries) / (t2 - t1)}
+
+
+def stream_phase(data, seed: int) -> tuple:
+    """Phase 8a: config 4's streaming build of phase 3's 1M-doc corpus
+    into a segments-mode engine on the card, a quiesce, 1% deletes and 1%
+    upserts, then 512 queries held to a scipy oracle over the live docs."""
+    from tfidf_tpu_torch.engine.engine import Engine
+    from tfidf_tpu_torch.utils.config import Config
+    corpus = data["corpus"]
+    offsets, ids, tfs, lengths = corpus
+    n_docs = offsets.shape[0] - 1
+    queries = data["queries"][:ST_QUERIES]
+    engine = Engine(Config(index_mode="segments", query_batch=ST_BATCH,
+                           embedding_enabled=False))
+    if engine.device.type != "cuda":
+        raise SystemExit(f"streaming: engine on {engine.device}")
+    index = engine.index
+    t0 = time.perf_counter()
+    engine.vocab.extend(f"t{i}" for i in range(NS_VOCAB))
+    vocab_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    merges0 = {k: metric(f"merges_{k}") for k in ("inline", "background")}
+    stream = torch.cuda.current_stream()
+    add = index.add_document_arrays
+    off = offsets.tolist()
+    lens = lengths.tolist()
+    commit_ms, inflight = [], []
+    t0 = time.perf_counter()
+    for i in range(n_docs):
+        add(f"d{i}", ids[off[i]:off[i + 1]], tfs[off[i]:off[i + 1]],
+            lens[i])
+        if (i + 1) % ST_COMMIT_EVERY == 0 or i + 1 == n_docs:
+            inflight.append(index._merge_future is not None)
+            c0 = time.perf_counter()
+            engine.commit()
+            stream.synchronize()      # the commit's own device work only
+            commit_ms.append((time.perf_counter() - c0) * 1e3)
+    stream_s = time.perf_counter() - t0
+    # quiesce as bench.py does: drain the background merges (untimed in
+    # the sustained rate — they ran off the write path)
+    q0 = time.perf_counter()
+    for _ in range(32):
+        index.wait_for_merges()
+        engine.commit()
+        if len(index._segments) <= engine.config.max_segments \
+                and index._merge_future is None:
+            break
+    sync()
+    quiesce_s = time.perf_counter() - q0
+    segs_quiesced = len(index.snapshot.segments)
+    # tombstone 1% of the docs and upsert another 1% with new content
+    rng = np.random.default_rng(seed + 8)
+    n_mut = int(n_docs * ST_MUTATE)
+    picked = rng.choice(n_docs, size=2 * n_mut, replace=False)
+    deleted, upserted = np.sort(picked[:n_mut]), np.sort(picked[n_mut:])
+    fresh = make_doc_arrays(rng, n_mut, NS_VOCAB, NS_AVG_LEN)
+    m0 = time.perf_counter()
+    for d in deleted.tolist():
+        if not engine.delete(f"d{d}"):
+            raise SystemExit(f"streaming: delete of d{d} found nothing")
+    f_off = fresh[0].tolist()
+    for j, d in enumerate(upserted.tolist()):
+        add(f"d{d}", fresh[1][f_off[j]:f_off[j + 1]],
+            fresh[2][f_off[j]:f_off[j + 1]], float(fresh[3][j]))
+    c0 = time.perf_counter()
+    engine.commit()
+    stream.synchronize()
+    mutate_commit_ms = (time.perf_counter() - c0) * 1e3
+    mutate_s = time.perf_counter() - m0
+    snap = index.snapshot
+    mem = {"allocated_bytes": torch.cuda.memory_allocated(),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    keep = np.setdiff1d(np.arange(n_docs), picked)
+    live = _concat_corpora(_gather_docs(corpus, keep), fresh)
+    live_names = ([f"d{j}" for j in keep.tolist()]
+                  + [f"d{j}" for j in upserted.tolist()])
+    if index.num_live_docs != n_docs - n_mut:
+        raise SystemExit(f"streaming: {index.num_live_docs} live docs, "
+                         f"expected {n_docs - n_mut}")
+    # the incremental device stats against a recompute from the segments
+    stats = _segment_stats(index, snap.df.shape[0])
+    # df and N are integer counts, equal exactly; avgdl within f32
+    # rounding (each segment's length sum is an f32 sum, as in the JAX
+    # package)
+    df_err = float(np.abs(snap.df_host - stats[0]).max())
+    if df_err or snap.n_docs_f != stats[1] \
+            or abs(snap.avgdl_f - stats[2]) > 1e-6 * stats[2]:
+        raise SystemExit(f"streaming: the committed stats differ from a "
+                         f"recompute over the segments: max |d df| "
+                         f"{df_err}, N {snap.n_docs_f} vs {stats[1]}, "
+                         f"avgdl {snap.avgdl_f} vs {stats[2]}")
+    cm = np.asarray(commit_ms[1:])
+    res = {"docs": n_docs, "commits": len(commit_ms),
+           "vocab_register_s": vocab_s, "stream_s": stream_s,
+           "docs_per_s": n_docs / stream_s,
+           "first_commit_ms": commit_ms[0],
+           "commit_ms_p50": float(np.percentile(cm, 50)),
+           "commit_ms_p99": float(np.percentile(cm, 99)),
+           "commit_ms_max": float(cm.max()),
+           "merge_inflight_share": float(np.mean(inflight)),
+           "merges": {k: metric(f"merges_{k}") - merges0[k]
+                      for k in merges0},
+           "quiesce_s": quiesce_s, "segments_quiesced": segs_quiesced,
+           "segments": len(snap.segments),
+           "deleted": n_mut, "upserted": n_mut,
+           "mutate_s": mutate_s, "mutate_commit_ms": mutate_commit_ms,
+           "memory": mem, "df_full_recomputes": index.df_full_recomputes}
+    log(f"[stream] {n_docs} docs in {stream_s:.1f}s = "
+        f"{res['docs_per_s']:.0f} docs/s sustained, {len(commit_ms)} "
+        f"commits: first {commit_ms[0]:.0f} ms, then p50 "
+        f"{res['commit_ms_p50']:.1f} p99 {res['commit_ms_p99']:.1f} max "
+        f"{res['commit_ms_max']:.1f} ms; merge in flight at "
+        f"{res['merge_inflight_share']:.0%} of commits; merges "
+        f"{res['merges']}; quiesce {quiesce_s:.1f}s -> {segs_quiesced} "
+        f"segments; {n_mut} deletes + {n_mut} upserts committed in "
+        f"{mutate_commit_ms:.0f} ms -> {len(snap.segments)} segments; "
+        f"device memory {mem}")
+
+    engine.search_batch(queries[:ST_BATCH], k=TOP_K)          # warm
+    hits, arrays, qps = serve_segments(engine, queries)
+    dead = {f"d{d}" for d in deleted.tolist()}
+    if any(h.name in dead for hs in hits for h in hs):
+        raise SystemExit("streaming: a deleted doc was returned")
+    # the engine's row order over its live rows (gid order), for ties
+    rows = [nm for seg in snap.segments
+            for nm, a in zip(seg.names, seg.live) if a]
+    t0 = time.perf_counter()
+    oracle = oracle_check(live, queries, hits, NS_VOCAB, rows,
+                          stats=stats, names=live_names)
+    oracle["seconds"] = time.perf_counter() - t0
+    up = {f"d{d}" for d in upserted.tolist()}
+    res.update(qps=qps, oracle=oracle,
+               upserted_hits=sum(h.name in up for hs in hits for h in hs),
+               breakdown_ms=streaming_breakdown(engine, queries[:ST_BATCH]),
+               scorer=segment_scorer_times(engine, queries))
+    log(f"[stream] served {len(queries)} queries: {qps} q/s; oracle over "
+        f"the live docs OK: {oracle}; {res['upserted_hits']} hits on "
+        f"upserted docs (scored by their new content); one {ST_BATCH}-query "
+        f"batch, ms: {res['breakdown_ms']}")
+    log(f"[stream] segment scorer (torch ops, no kernel), one "
+        f"{res['scorer']['batch']}-query batch: {res['scorer']['ms']:.2f} "
+        f"ms against a {res['scorer']['bound_ms']:.3f} ms bound "
+        f"({res['scorer']['bound_by']}), x{res['scorer']['x_bound']:.0f}")
+    check_clean(engine, "streaming engine")
+    return res, {"engine": engine, "hits": hits, "arrays": arrays}
+
+
+def tier_phase(ctx8, queries, work: str) -> dict:
+    """Phase 8b: save the streaming engine (``segstate.npz``), restore it
+    into a tiered engine (the default 512 MB hot budget, ring depth 2),
+    serve the same queries tiered and through ``tier_bypass``: hits and
+    values identical to the bit, and to 8a's; then one injected upload
+    fault, which must surface, and a clean batch after it unchanged."""
+    from tfidf_tpu_torch.engine.checkpoint import (load_checkpoint,
+                                                   save_checkpoint)
+    from tfidf_tpu_torch.utils.device_nemesis import (DeviceTransientError,
+                                                      global_device_nemesis)
+    engine, hits, arrays = ctx8.pop("engine"), ctx8["hits"], ctx8["arrays"]
+    ckpt = os.path.join(work, "stream_ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(engine, ckpt)
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(os.path.realpath(ckpt))
+    cfg = engine.config.replace(tier_enabled=True,
+                                index_path=os.path.join(work, "tier"))
+    seg_bytes = sum(s.device_bytes for s in engine.index._segments)
+    budget_note = None
+    if seg_bytes <= cfg.tier_hot_budget_mb << 20:
+        # the default budget would hold every segment at this size: use
+        # half the segments' device bytes, so the cold path runs
+        cfg = cfg.replace(tier_hot_budget_mb=(seg_bytes // 2) >> 20)
+        budget_note = (f"the default budget holds all {seg_bytes} B; "
+                       f"{cfg.tier_hot_budget_mb} MB used")
+    del engine
+    torch.cuda.empty_cache()
+    sync()
+    t0 = time.perf_counter()
+    tiered = load_checkpoint(ckpt, cfg)
+    sync()
+    load_s = time.perf_counter() - t0
+    tier = tiered.tier
+    st0 = dict(tiered.tier_stats(), segment_bytes=seg_bytes)
+    if st0["cold_segments"] == 0 or not tiered.index.snapshot.cold:
+        raise SystemExit(f"tier: no segment is cold after the restore: "
+                         f"{st0}")
+    log(f"[tier] save {save_s:.2f}s ({nbytes} bytes, segstate.npz), "
+        f"restore into the tiered engine {load_s:.2f}s: {st0}"
+        + (f"; {budget_note}" if budget_note else ""))
+    # no warm-up batch: the first one faults the cold segments in through
+    # the ring (a fault-in the budget can hold keeps its segment hot)
+    before = dict(tiered.tier_stats(), considered=tier.considered)
+    t_hits, t_arrays, t_qps = serve_segments(tiered, queries)
+    after = dict(tiered.tier_stats(), considered=tier.considered)
+    tiered.searcher.tier_bypass = True
+    b_hits, b_arrays, b_qps = serve_segments(tiered, queries)
+    tiered.searcher.tier_bypass = False
+    for what, got, got_a in (("tiered", t_hits, t_arrays),
+                             ("bypass", b_hits, b_arrays)):
+        if _hits_key(got) != _hits_key(hits):
+            raise SystemExit(f"tier: {what} hits differ from the streaming "
+                             "engine's")
+        if _arrays_live(got_a) != _arrays_live(arrays) \
+                or got_a[0].tobytes() != arrays[0].tobytes():
+            raise SystemExit(f"tier: {what} arrays differ from the "
+                             "streaming engine's")
+    delta = {k: after[k] - before[k] for k in
+             ("cold_faults", "segments_skipped", "hot_hits", "considered",
+              "ring_stall_s")}
+    if not delta["considered"] or not (delta["cold_faults"]
+                                       + delta["segments_skipped"]):
+        raise SystemExit(f"tier: the tiered run walked no cold segment: "
+                         f"{delta}")
+    log(f"[tier] tiered {t_qps} q/s, bypass {b_qps} q/s, hits and values "
+        f"identical to the bit to each other and to the streaming "
+        f"engine's; tiered run: {delta}; {after}")
+    check_clean(tiered, "tiered engine")
+    # one injected fault on the upload ring: empty the resident set, so
+    # the next batch must fault a cold segment in
+    budget = tier.budget_bytes
+    tier.set_budget(0)
+    tier.set_budget(budget)
+    cold0 = tiered.tier_stats()["cold_faults"]
+    global_device_nemesis.script("upload:transient:1.0:count=1")
+    try:
+        tiered.search_batch(queries[:ST_BATCH], k=TOP_K)
+        raise SystemExit("tier: the armed upload fault did not surface")
+    except DeviceTransientError as e:
+        fault = repr(e)
+    finally:
+        fired = global_device_nemesis.snapshot()["rules"][0]["fired"]
+        global_device_nemesis.clear()
+    if fired != 1 or tiered.pop_fallback_served():
+        raise SystemExit(f"tier: upload rule fired {fired} times")
+    clean = tiered.search_batch(queries[:ST_BATCH], k=TOP_K)
+    if _hits_key(clean) != _hits_key(hits[:ST_BATCH]):
+        raise SystemExit("tier: the clean batch after the upload fault "
+                         "differs")
+    health = tiered.compute_stats()
+    log(f"[tier] upload:transient surfaced as {fault} (no fallback for a "
+        f"segmented snapshot, as in the JAX package); the next clean "
+        f"batch unchanged; cold faults {cold0} -> "
+        f"{tiered.tier_stats()['cold_faults']}; health {health['state']}")
+    check_clean(tiered, "tiered engine after the upload fault", faults=1)
+    tier.close()
+    del tiered
+    torch.cuda.empty_cache()
+    return {"save_s": save_s, "bytes": nbytes, "load_s": load_s,
+            "after_restore": st0, "budget_note": budget_note,
+            "qps_tiered": t_qps, "qps_bypass": b_qps, "tiered_run": delta,
+            "tier_stats": after, "upload_fault": fault}
+
+
+def streaming_phases(data, seed: int, work: str) -> dict:
+    """Phase 8: 8a streaming, 8b tiering; the phase's seconds."""
+    t0 = time.perf_counter()
+    res, ctx8 = stream_phase(data, seed)
+    res["tier"] = tier_phase(ctx8, data["queries"][:ST_QUERIES], work)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[stream] phase 8 took {res['seconds']:.1f}s")
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 7: the fleet — the port's CLI, one process per node, on the card
 # --------------------------------------------------------------------------
 
@@ -2442,12 +2897,20 @@ def main() -> int:
         worker = {"checkpoint": checkpoint_phase(ctx, main_res, args.work)}
         worker["compute"] = compute_phase(ctx)
         # the fleet's two shard checkpoints, from phase 3's corpus
-        data = {"corpus": ctx["corpus"], "rows": ctx["rows"]}
+        data = {"corpus": ctx["corpus"], "rows": ctx["rows"],
+                "queries": ctx["served"]}
         del ctx
         torch.cuda.empty_cache()
         shards = fleet_shards(data, args.work)
         durable = durable_phase(args.seed, args.work)
         torch.cuda.empty_cache()
+        # ---- phase 8: streaming segments and tiering ----
+        streaming = streaming_phases(data, args.seed, args.work)
+        streaming["scorer"]["ell_v4_ms_main_path"] = \
+            main_res["kernel"]["v4_ms"]
+        log(f"[stream] the segment scorer's {streaming['scorer']['ms']:.2f}"
+            f" ms against the ELL kernel's {main_res['kernel']['v4_ms']:.2f}"
+            f" ms on the same corpus (phase 3, precomputed impacts)")
         # ---- phase 7: the fleet, one process per node ----
         fleet = fleet_phase(data, shards, args.seed, args.work, args.out)
     finally:
@@ -2470,7 +2933,8 @@ def main() -> int:
                    "topk": topk,
                    "main": main_res, "dense": dense, "text": text,
                    "worker": worker,
-                   "durable": durable, "fleet": fleet,
+                   "durable": durable, "streaming": streaming,
+                   "fleet": fleet,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

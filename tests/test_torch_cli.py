@@ -272,6 +272,6 @@ def test_ingest_and_search_match_the_jax_cli(tmp_path, capsys):
 
 @pytest.mark.timeout(120)
 def test_distributed_serve_is_not_ported(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
         port_main(["serve", "--distributed", "--device", "cpu",
                    "--index-path", str(tmp_path / "idx")])

@@ -31,12 +31,12 @@ _DEVICE_ARG = '''    s.add_argument("--device",
 
 CLI_DEVICE = "the CLI's device choice (--device / TFIDF_DEVICE, default cuda)"
 CLI_BENCH = ("`bench` runs the TPU bench.py; the port's bench is ROADMAP "
-             "queue A item 12")
+             "queue A item 2")
 CLI_SIGTERM = ("serve/router/coordinator park in bounded waits: a SIGTERM "
                "handled on another thread does not interrupt a blocking "
                "Event.wait, and the process never stopped (ROADMAP queue C)")
-CLI_MESH = ("multi-host (`distributed`) is the mesh slice, ROADMAP item 7: "
-            "it raises NotImplementedError")
+CLI_MESH = ("multi-host (`distributed`) is the mesh slice, ROADMAP queue A "
+            "item 3: it raises NotImplementedError")
 
 VIEW_READ = ("a placement follower re-reads the placement znode only when "
              "it changed (get_data by digest): a full read of the ~39 MB "
@@ -169,8 +169,8 @@ HUNKS = {
                         if cfg.dist_process_id >= 0 else None))
 ''', '''        raise NotImplementedError(
             "tfidf_tpu_torch: distributed (multi-host mesh) serving is not "
-            "ported yet (ROADMAP queue A item 11 / 'Still to port' item 7); "
-            "use the tfidf_tpu package for it")
+            "ported yet (ROADMAP queue A item 3); use the tfidf_tpu package "
+            "for it")
     device = _device(args)
 ''', CLI_MESH + "; " + CLI_DEVICE),
         ("engine, meta = restore_checkpoint(ckpt_dir, cfg)",
@@ -252,8 +252,8 @@ except Exception:  # pragma: no cover
     ],
 }
 
-# every verbatim copy of the port; the cluster plane and the CLI are this
-# slice's, the rest are the host layers of the earlier slices
+# every verbatim copy of the port: the cluster plane and the CLI, the host
+# layers of the earlier slices, and the streaming slice's block-max bounds
 COPIES = sorted(
     ["cluster/" + n for n in (
         "__init__.py", "admission.py", "autopilot.py", "batcher.py",
@@ -265,7 +265,8 @@ COPIES = sorted(
     + ["utils/" + n for n in ("config.py", "faults.py", "logging.py",
                               "metrics.py", "storage.py", "tracing.py")]
     + ["models/base.py", "models/bm25.py", "models/tfidf.py",
-       "ops/analyzer.py", "engine/embedder.py", "engine/pipeline.py"])
+       "ops/analyzer.py", "ops/blockmax.py", "engine/embedder.py",
+       "engine/pipeline.py"])
 
 
 def _read(*parts):

@@ -164,12 +164,32 @@ def test_engine_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("kw,what", [
     (dict(engine_mode="mesh"), "engine_mode"),
     (dict(index_mode="segments"), "index_mode"),
+    (dict(index_mode="segments", tier_enabled=True), "tiered segments"),
     (dict(embedding_enabled=True), "dense plane"),
 ])
-def test_unported_modes_raise(kw, what):
+def test_unported_modes_raise(kw, what, tmp_path):
     """The modes still to port raise, naming what is missing. The dense
     plane is ported: its case, the Config default, ingests, commits and
-    answers ``search_dense_batch`` beside the sparse plane."""
+    answers ``search_dense_batch`` beside the sparse plane. So are the
+    streaming segments, tiered or not: they ingest, commit, search and
+    delete (budget 0: every search streams its cold segments back)."""
+    if what in ("index_mode", "tiered segments"):
+        e = Engine(Config(**dict(SMALL, index_path=str(tmp_path / "idx"),
+                                 tier_hot_budget_mb=0, **kw)),
+                   device="cpu")
+        assert (e.tier is not None) == (what == "tiered segments")
+        for name, text in CORPUS.items():
+            e.ingest_bytes(name, text.encode())
+            e.commit()                         # one segment per document
+        assert len(e.index.snapshot.segments) == len(CORPUS)
+        assert e.search("fast food")[0].name == "file1.txt"
+        assert e.delete("file1.txt")
+        e.commit()
+        assert all(h.name != "file1.txt" for h in e.search("fast food"))
+        if e.tier is not None:
+            assert e.tier_stats()["cold_faults"] > 0
+            e.tier.close()
+        return
     if what == "dense plane":
         e = Engine(Config(**dict(SMALL, **kw)), device="cpu")
         assert Config().embedding_enabled and e.dense is not None

@@ -46,6 +46,11 @@ CLUSTER_MODULES = ("cluster", "cluster.admission", "cluster.autopilot",
                    "__main__")
 
 
+# the streaming-segments and tiering slice's modules
+SEGMENT_MODULES = ("ops.blockmax", "ops.dfdelta", "engine.segments",
+                   "engine.tiering")
+
+
 def test_whole_port_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120,
@@ -54,7 +59,7 @@ def test_whole_port_imports_with_jax_blocked():
     assert "BAD []" in r.stdout, r.stdout
     assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
     loaded = set(r.stdout.split("HAS")[1].split())
-    for mod in WORKER_MODULES + CLUSTER_MODULES:
+    for mod in WORKER_MODULES + CLUSTER_MODULES + SEGMENT_MODULES:
         assert f"tfidf_tpu_torch.{mod}" in loaded, mod
 
 
@@ -93,6 +98,27 @@ def test_cluster_modules_import_with_jax_blocked():
                        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "None False", r.stdout
+
+
+def test_segment_modules_import_with_jax_blocked():
+    """Each module of the streaming-segments slice imports on its own with
+    ``jax`` and ``tfidf_tpu`` blocked, loads nothing of ``tfidf_tpu``, and
+    importing it creates no CUDA stream, builds nothing and touches no
+    CUDA state."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['tfidf_tpu'] = None\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module('tfidf_tpu_torch.' + m)\n"
+            "import torch, tfidf_tpu_torch.native as n\n"
+            "print(sorted(k for k in sys.modules if k == 'tfidf_tpu' "
+            "and sys.modules[k] is not None or k.startswith('tfidf_tpu.')),"
+            " n._lib, torch.cuda.is_initialized())\n")
+    r = subprocess.run([sys.executable, "-c", code, *SEGMENT_MODULES],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[] None False", r.stdout
 
 
 def _imported_roots(path):

@@ -81,8 +81,8 @@ def cmd_serve(args) -> int:
         # the multi-host mesh is the multi-GPU slice of the port
         raise NotImplementedError(
             "tfidf_tpu_torch: distributed (multi-host mesh) serving is not "
-            "ported yet (ROADMAP queue A item 11 / 'Still to port' item 7); "
-            "use the tfidf_tpu package for it")
+            "ported yet (ROADMAP queue A item 3); use the tfidf_tpu package "
+            "for it")
     device = _device(args)
     server = None
     if args.embedded_coordinator:

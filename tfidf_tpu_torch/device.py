@@ -15,6 +15,7 @@ resolved; nothing on the scoring path may run in reduced precision.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _PRECISION_SET = False
@@ -45,3 +46,45 @@ def resolve_device(device: str | torch.device | None = None
         raise RuntimeError(f"tfidf_tpu_torch: device {dev} requested but "
                            "CUDA is not available")
     return dev
+
+
+def upload(arr, device: torch.device, stream=None) -> torch.Tensor:
+    """A host numpy array as a tensor on ``device``.
+
+    The CPU gets a tensor of its own (a copy when ``arr`` is read-only —
+    an npz member, a read-only memmap — else ``arr``'s memory, which the
+    callers never write again). On CUDA without ``stream`` it is a plain
+    copy on the current stream. With ``stream`` (a background merge, the
+    tier's upload ring) the array is staged in pinned memory and copied
+    ``non_blocking`` on that stream; the tensor is then marked as used by
+    the device's default stream, where scoring runs, so the caching
+    allocator never hands its memory to the side stream while a search
+    may still read it. The caller records an event on ``stream`` after
+    its uploads, and scoring waits on that event."""
+    a = np.asarray(arr)
+    if device.type != "cuda" or stream is None:
+        if not a.flags.writeable or isinstance(a, np.memmap):
+            a = np.array(a)
+        t = torch.from_numpy(a)
+        return t if device.type != "cuda" else t.to(device)
+    # one host copy, straight from the array (a memmap's pages) into the
+    # pinned staging buffer; the pinned allocator keeps the buffer until
+    # the copy that reads it has completed
+    dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+    staged = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+    staged.numpy()[...] = a
+    with torch.cuda.stream(stream):
+        t = staged.to(device, non_blocking=True)
+    t.record_stream(torch.cuda.default_stream(device))
+    return t
+
+
+def zeros_on(n: int, device: torch.device, stream=None) -> torch.Tensor:
+    """f32 zeros ``[n]`` on ``device``, allocated on ``stream`` when given
+    (then marked like :func:`upload`'s tensors)."""
+    if device.type != "cuda" or stream is None:
+        return torch.zeros(n, dtype=torch.float32, device=device)
+    with torch.cuda.stream(stream):
+        t = torch.zeros(n, dtype=torch.float32, device=device)
+    t.record_stream(torch.cuda.default_stream(device))
+    return t

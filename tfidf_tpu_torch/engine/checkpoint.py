@@ -12,6 +12,7 @@ containing:
     docs.npz      offsets[n+1], term_ids[nnz], tfs[nnz], lengths[n]
     names.json    document names, aligned with offsets
     snapshot.npz  the committed snapshot's arrays (fast restore)
+    segstate.npz  the segment state instead (``index_mode="segments"``)
     embeddings.npz  the dense plane's rows + their index into names.json
     meta.json     model kind, counts, format version, embedder signature
     MANIFEST.json CRC32 + size of every file above (utils/storage.py)
@@ -27,9 +28,14 @@ directory.
 
 The embedding column restores from ``embeddings.npz`` when the stored
 embedder signature (model, dim) matches the running config; otherwise
-every document is re-embedded from ``vocab.txt`` and the term table. Not
-in this package yet: the segment-state payload (``segstate.npz``,
-``index_mode="segments"``) raises ``NotImplementedError``.
+every document is re-embedded from ``vocab.txt`` and the term table.
+
+A streaming index saves its segments (``segstate.npz``: each segment's
+blocked-ELL layout rebuilt on the host from the retained postings, its df,
+lengths, live mask and names) and restores them by pure uploads, with no
+re-layout and no commit of the whole corpus into one segment; a tiered
+engine re-admits every restored segment to its tier, whose budget then
+spills what does not fit.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import time
 import numpy as np
 
 from tfidf_tpu_torch.engine.engine import Engine
+from tfidf_tpu_torch.engine.index import entries_from_packed
 from tfidf_tpu_torch.utils import storage
 from tfidf_tpu_torch.utils.config import Config
 from tfidf_tpu_torch.utils.faults import fault_point
@@ -121,7 +128,9 @@ def save_checkpoint(engine: Engine, directory: str) -> None:
     # into names.json
     snap_meta = None
     exported = (engine.index.export_snapshot_arrays()
-                if engine.config.checkpoint_snapshot_arrays else None)
+                if engine.config.checkpoint_snapshot_arrays
+                and hasattr(engine.index, "export_snapshot_arrays")
+                else None)
     if exported is not None:
         arrays, snap_names, snap_gen = exported
         pos = {d.name: i for i, d in enumerate(entries)}
@@ -135,6 +144,17 @@ def save_checkpoint(engine: Engine, directory: str) -> None:
             storage.savez(os.path.join(build, "snapshot.npz"), **arrays)
             snap_meta = {"score_signature": _score_signature(engine),
                          "kind": "shard"}
+    # the segment-level payload of a streaming index, under the same
+    # gen-token consistency rule
+    full = (engine.index.export_full_state()
+            if engine.config.checkpoint_snapshot_arrays
+            and hasattr(engine.index, "export_full_state") else None)
+    if full is not None:
+        arrays, full_gen = full
+        if full_gen == entries_gen:
+            storage.savez(os.path.join(build, "segstate.npz"), **arrays)
+            snap_meta = {"score_signature": _score_signature(engine),
+                         "kind": "segments"}
     storage.write_bytes(os.path.join(build, "meta.json"), json.dumps({
         "format_version": FORMAT_VERSION,
         "model": engine.model.kind,
@@ -230,10 +250,6 @@ def load_checkpoint(directory: str, config: Config | None = None,
     if meta["model"] != config.model:
         config = config.replace(model=meta["model"])
     snap_meta = meta.get("snapshot") or {}
-    if snap_meta.get("kind") == "segments":
-        raise NotImplementedError(
-            "tfidf_tpu_torch: segstate.npz (index_mode='segments') is not "
-            "ported yet; use the tfidf_tpu package for it")
     engine = Engine(config, device=device)
     # populate the engine's OWN vocabulary (possibly native-backed) so
     # later ingests through either path see the restored terms
@@ -244,6 +260,25 @@ def load_checkpoint(directory: str, config: Config | None = None,
         with open(os.path.join(directory, "names.json"),
                   encoding="utf-8") as f:
             names = json.load(f)
+    # segment-level fast path (streaming mode): rebuild the committed
+    # segment list from segstate.npz — device work is pure uploads
+    seg_path = os.path.join(directory, "segstate.npz")
+    if (snap_meta.get("kind") == "segments" and os.path.exists(seg_path)
+            and hasattr(engine.index, "install_full_state")
+            and snap_meta.get("score_signature")
+            == _score_signature(engine)):
+        with trace_phase("restore.install"):
+            entries, _arrays = entries_from_packed(
+                names, data["offsets"], data["term_ids"], data["tfs"],
+                data["lengths"])
+            engine.index.install_full_state(np.load(seg_path), entries)
+            engine.commit()
+        with trace_phase("restore.dense"):
+            _restore_dense(engine, directory, meta, names, data)
+        log.info("checkpoint loaded", dir=directory, docs=len(names),
+                 fast_snapshot="segments")
+        return engine
+    with trace_phase("restore.docs"):
         engine.index.bulk_load_packed(names, data["offsets"],
                                       data["term_ids"], data["tfs"],
                                       data["lengths"])
@@ -254,6 +289,7 @@ def load_checkpoint(directory: str, config: Config | None = None,
     snap_path = os.path.join(directory, "snapshot.npz")
     installed = False
     if (snap_meta.get("kind") == "shard" and os.path.exists(snap_path)
+            and hasattr(engine.index, "install_snapshot_arrays")
             and snap_meta.get("score_signature")
             == _score_signature(engine)):
         snap = np.load(snap_path)

@@ -39,7 +39,9 @@ engine composes around every dispatch:
 
 Scope: the plain :class:`~tfidf_tpu_torch.engine.index.Snapshot` layouts
 (blocked ELL + residual, and COO) under the local engine; any other
-snapshot raises :class:`FallbackUnsupported`.
+snapshot raises :class:`FallbackUnsupported` — a segmented one with the
+JAX package's reason (no bit-exact host mirror of its current-stats
+weights), so a segments-mode device fault re-raises as it does there.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import time
 import numpy as np
 
 from tfidf_tpu_torch.engine.index import Snapshot
+from tfidf_tpu_torch.engine.segments import SegmentedSnapshot
 from tfidf_tpu_torch.ops.scoring import segment_weights
 from tfidf_tpu_torch.utils.logging import get_logger
 from tfidf_tpu_torch.utils.metrics import global_metrics
@@ -362,6 +365,11 @@ class HostFallbackScorer:
         self._mirror: _SnapshotMirror | None = None
 
     def _mirror_for(self, snap) -> _SnapshotMirror:
+        if isinstance(snap, SegmentedSnapshot):
+            raise FallbackUnsupported(
+                "segmented/tiered snapshots have no bit-exact host "
+                "mirror (streaming current-stats weights) — leader "
+                "failover covers this worker")
         if not isinstance(snap, Snapshot):
             raise FallbackUnsupported(
                 f"no host mirror for snapshot type "
@@ -381,7 +389,7 @@ class HostFallbackScorer:
         """Fetch the mirror of the committed snapshot now (commit time),
         so a later fallback needs nothing from the device."""
         snap = self.searcher.index.snapshot
-        if snap is not None and snap.num_names:
+        if isinstance(snap, Snapshot) and snap.num_names:
             self._mirror_for(snap)
 
     def mirror_stats(self) -> dict:

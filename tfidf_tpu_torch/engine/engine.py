@@ -1,12 +1,18 @@
 """Engine — the per-node facade tying analyzer, vocab, index and searcher,
 on a torch device.
 
-The counterpart of ``tfidf_tpu/engine/engine.py`` in local rebuild mode:
-ingest bytes -> text -> tokens -> vocab ids -> shard index; commit;
-search; checkpoint (``engine/checkpoint.py``); rebuild. With the dense
-plane on (``embedding_enabled``, the Config default) every document also
-feeds an :class:`~tfidf_tpu_torch.engine.dense.EmbeddingColumn` and takes
-the Python analyzer, so one tokenize feeds both planes; with it off, ASCII
+The counterpart of ``tfidf_tpu/engine/engine.py`` in local mode: ingest
+bytes -> text -> tokens -> vocab ids -> shard index; commit; search;
+checkpoint (``engine/checkpoint.py``); rebuild. ``index_mode="rebuild"``
+re-lays-out the corpus each commit (:class:`ShardIndex`);
+``index_mode="segments"`` streams commits into immutable segments with
+tombstones and tiered merges (:class:`SegmentedIndex`), and with
+``tier_enabled`` keeps a hot set of segments on the card under a byte
+budget and the rest in manifested spill files (:class:`TierManager`).
+With the dense plane on (``embedding_enabled``, the Config default)
+every document also feeds an
+:class:`~tfidf_tpu_torch.engine.dense.EmbeddingColumn` and takes the
+Python analyzer, so one tokenize feeds both planes; with it off, ASCII
 documents take the native C++ tokenizer (:mod:`tfidf_tpu_torch.native`)
 and others the result-identical Python analyzer. Raw documents on disk
 are the source of truth: ``ingest_bytes`` / ``stage_bytes`` +
@@ -21,10 +27,11 @@ injected (:class:`DeviceFault`) degrade to the bit-exact host mirror
 (:class:`HostFallbackScorer`, when ``compute_fallback`` is on); a real
 CUDA error or OOM re-raises, so a kernel that fails is never hidden
 behind the host. Poison is never absorbed. The dense plane is never
-host-served: its faults advance health, ladder down on OOM and re-raise.
+host-served: its faults advance health, ladder down on OOM and re-raise;
+nor is a segmented snapshot (no bit-exact host mirror of its
+current-stats weights): its device faults re-raise as in the JAX engine.
 
-Not ported yet — each raises ``NotImplementedError`` naming what is
-missing: ``engine_mode="mesh"`` and ``index_mode="segments"``.
+Not ported yet: ``engine_mode="mesh"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from tfidf_tpu_torch.engine.dense import EmbeddingColumn
 from tfidf_tpu_torch.engine.embedder import get_embedder
 from tfidf_tpu_torch.engine.index import ShardIndex
 from tfidf_tpu_torch.engine.searcher import Searcher, SearchHit
+from tfidf_tpu_torch.engine.segments import SegmentedIndex
 from tfidf_tpu_torch.engine.vocab import NativeVocabulary, Vocabulary
 from tfidf_tpu_torch.models.base import get_model
 from tfidf_tpu_torch.ops.analyzer import (Analyzer, UnsupportedMediaType,
@@ -80,13 +88,11 @@ class Engine:
         c = self.config
         if c.engine_mode != "local":
             raise _later(f"engine_mode={c.engine_mode!r}")
-        if c.index_mode != "rebuild":
-            raise _later(f"index_mode={c.index_mode!r}")
         # single-writer mutation guard; RLock because ingest_bytes ->
         # ingest_text nests
         self._write_lock = threading.RLock()
         self.dense = None    # set below when embedding_enabled
-        self.tier = None     # tiered segments are not ported
+        self.tier = None     # set below for tiered segments mode only
         self.compute = ComputeHealth(
             degraded_after=c.compute_degraded_after,
             sick_after=c.compute_sick_after,
@@ -117,13 +123,37 @@ class Engine:
                 self.native, min_capacity=c.min_vocab_capacity)
         else:
             self.vocab = Vocabulary(min_capacity=c.min_vocab_capacity)
-        self.index = ShardIndex(
-            self.model,
-            min_nnz_cap=c.min_nnz_capacity,
-            min_doc_cap=c.min_doc_capacity,
-            layout=c.scoring_layout,
-            ell_width_cap=c.ell_width_cap,
-            device=device)
+        if c.index_mode == "segments":
+            # tiered postings: a hot set on the device + an mmap-backed
+            # cold tier with block-max skipping. Loud on a cosine model —
+            # no sound per-segment upper bound exists there
+            if c.tier_enabled:
+                from tfidf_tpu_torch.engine.tiering import TierManager
+                cold = c.tier_cold_dir or os.path.join(
+                    c.index_path, "cold")
+                self.tier = TierManager(
+                    cold, int(c.tier_hot_budget_mb) << 20,
+                    ring_depth=c.tier_ring_depth,
+                    skip_margin=c.tier_skip_margin)
+            self.index = SegmentedIndex(
+                self.model,
+                min_doc_cap=c.min_doc_capacity,
+                ell_width_cap=c.ell_width_cap,
+                max_segments=c.max_segments,
+                sync_merge_nnz=c.sync_merge_nnz,
+                merge_upload_pace=c.merge_upload_pace,
+                merge_workers=c.merge_workers,
+                incremental_stats=c.df_incremental,
+                tier=self.tier,
+                device=device)
+        else:
+            self.index = ShardIndex(
+                self.model,
+                min_nnz_cap=c.min_nnz_capacity,
+                min_doc_cap=c.min_doc_capacity,
+                layout=c.scoring_layout,
+                ell_width_cap=c.ell_width_cap,
+                device=device)
         self.device = self.index.device
         self.searcher = Searcher(
             self.index, self.analyzer, self.vocab, self.model,
@@ -271,6 +301,11 @@ class Engine:
             self.index.commit(self.vocab.capacity())
             if self.dense is not None:
                 self.dense.commit()
+                if self.tier is not None:
+                    # the dense column is a carve-out of the same device
+                    # memory the hot sparse set competes for
+                    self.tier.set_reserved(
+                        int(self.dense.stats()["device_bytes"]))
             self.prime_fallback()
         log.info("commit", ms=sw.ms, docs=self.index.num_live_docs)
 
@@ -491,7 +526,11 @@ class Engine:
         return self.dense.stats() if self.dense is not None else None
 
     def tier_stats(self) -> dict:
-        return {"enabled": False}
+        """Tier residency/skip summary for /api/health and `status` —
+        ``{"enabled": False}`` when tiering is off."""
+        if self.tier is None:
+            return {"enabled": False}
+        return self.tier.stats()
 
     # ---- files ----
 

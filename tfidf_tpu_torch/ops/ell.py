@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -515,6 +516,151 @@ def score_ell_batch(impacts, terms, impacts_t, terms_t, block_live,
     scores = score_ell_with_residual(
         impacts, terms, impacts_t, terms_t, block_live, res_tf, res_term,
         res_doc, doc_len, df, q, n_docs, avgdl, doc_norms, **kw)
+    if rule is not None:
+        scores = poison_scores(scores, q.weights, rule.min_uniq)
+    return scores
+
+
+# --------------------------------------------------------------------------
+# Streaming segments: weights from the CURRENT global stats, per query
+# --------------------------------------------------------------------------
+
+def _score_block_tf(tf: torch.Tensor, term: torch.Tensor, dl: torch.Tensor,
+                    df: torch.Tensor, slot_of: torch.Tensor,
+                    qc_t: torch.Tensor, n_docs, avgdl, norms: torch.Tensor,
+                    doc_chunk: int, *, model: str, k1: float, b: float,
+                    n_rows: int | None = None,
+                    out: torch.Tensor | None = None,
+                    row0: int = 0) -> torch.Tensor:
+    """One segment block (row-major ``[rows_cap, W]`` raw tf) scored with
+    weights computed per chunk from the current df/N/avgdl — the
+    streaming path, where precomputed impacts would go stale as the
+    corpus grows (``tfidf_tpu/ops/ell.py:_score_block_tf``).
+
+    Rows ``[0, n_rows)`` (default: all) go to ``out[:, row0:row0 +
+    n_rows]`` (default: a new ``[B, rows_cap]``). Every chunk has the
+    full shape ``_pick_chunk`` gives, so a row's bits depend only on the
+    block's shape and the batch, never on the other segments. The sum
+    over W is torch's, not a pinned order: the JAX function's is XLA's
+    ``.sum(axis=1)``, so the two agree within f32 rounding, not bitwise."""
+    rows_cap, width = tf.shape
+    B = qc_t.shape[1]
+    if out is None:
+        out = torch.empty((B, rows_cap), dtype=torch.float32,
+                          device=qc_t.device)
+    n_rows = rows_cap if n_rows is None else n_rows
+    chunk = _pick_chunk(rows_cap, width, B, doc_chunk)
+    for lo in range(0, n_rows, chunk):
+        m = min(chunk, n_rows - lo)
+        term_c = term[lo:lo + chunk].long()             # [Dc, W]
+        w = _entry_weights(model, tf[lo:lo + chunk], df[term_c],
+                           dl[lo:lo + chunk, None], n_docs, avgdl,
+                           norms[lo:lo + chunk, None], k1, b)
+        qg = qc_t[slot_of[term_c].long()]               # [Dc, W, B]
+        s = (qg * w[:, :, None]).sum(dim=1)             # [Dc, B]
+        out[:, row0 + lo:row0 + lo + m] = s[:m].T
+    return out
+
+
+class SegmentView(NamedTuple):
+    """Scoring-ready tensors of one streaming segment.
+
+    Built at commit time (``SegmentedIndex.commit``); the snapshot — not
+    the shared Segment object — owns the per-commit pieces
+    (``live_mask``, cosine ``norms``), so an already-published snapshot
+    never observes later deletes or df drift. ``ready`` is the CUDA event
+    recorded after the segment's uploads on a side stream (a background
+    merge, the tier's upload ring), or None: scoring makes its stream
+    wait on it first.
+    """
+    tfs: tuple            # f32 [rows_cap_i, width_i] blocks (raw tf)
+    terms: tuple          # i32 [rows_cap_i, width_i]
+    dls: tuple            # f32 [rows_cap_i] (model-transformed lengths)
+    norms: tuple          # f32 [rows_cap_i] (zeros unless cosine)
+    block_live: tuple     # int live rows per block (host)
+    live_mask: torch.Tensor   # f32 [doc_cap] — 1=live, tombstones 0
+    # COO residual for rows wider than the ELL width cap (None: no spill):
+    # (res_tf, res_term, res_doc, res_dl [doc_cap], res_norms [doc_cap]
+    #  or None, res_plan — its segment_plan, or None to derive it)
+    res: tuple | None
+    ready: object = None
+
+
+def score_segment_ell(view: SegmentView, df, slot_of, qc_ext, qc_t,
+                      n_docs, avgdl, *, model: str = "bm25",
+                      k1: float = 1.2, b: float = 0.75,
+                      doc_chunk: int = 2048,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """One streaming segment: its blocks scored with current stats, each
+    block's live rows written straight into their columns of the
+    segment's real doc space (the columns past the last live row set to
+    0 — the JAX package's ``_rearrange_to_real``, bit for bit), plus the
+    COO residual of over-wide docs, tombstones zeroed. Returns ``[B,
+    doc_cap]`` (``out``, when given: a column slice of the batch's
+    scores). ``slot_of``/``qc_ext``/``qc_t`` come from the caller's
+    single per-batch ``_compile_queries``."""
+    doc_cap = view.live_mask.shape[0]
+    B = qc_t.shape[1]
+    if view.ready is not None:
+        torch.cuda.current_stream(qc_t.device).wait_event(view.ready)
+    if out is None:
+        out = torch.empty((B, doc_cap), dtype=torch.float32,
+                          device=qc_t.device)
+    row0 = 0
+    for tf, term, dl, nrm, live in zip(view.tfs, view.terms, view.dls,
+                                       view.norms, view.block_live):
+        _score_block_tf(tf, term, dl, df, slot_of, qc_t, n_docs, avgdl,
+                        nrm, doc_chunk, model=model, k1=k1, b=b,
+                        n_rows=live, out=out, row0=row0)
+        row0 += live
+    out[:, row0:] = 0.0
+    if view.res is not None:
+        # docs with more distinct terms than the width cap spill here —
+        # the chunked segment-sum path with the same current-stats weights
+        res_tf, res_term, res_doc, res_dl, res_norms, res_plan = view.res
+        out += score_coo_compiled(
+            res_tf, res_term, res_doc, res_dl, df, slot_of, qc_ext,
+            n_docs, avgdl, res_norms, model=model, k1=k1, b=b,
+            chunk=min(1 << 10, res_tf.shape[0]), plan=res_plan)
+    out.mul_(view.live_mask[None, :])
+    return out
+
+
+def score_segments_impl(views, df, q: QueryBatch, n_docs, avgdl,
+                        *, model: str = "bm25", k1: float = 1.2,
+                        b: float = 0.75,
+                        doc_chunk: int = 2048) -> torch.Tensor:
+    """All streaming segments scored into one ``[B, sum(doc_cap)]``
+    tensor: one ``_compile_queries`` a batch, then each segment into its
+    own column slice. No segment's computation depends on another's or on
+    the total width, so scoring a segment alone gives the bits of its
+    slice here — the tiered dispatch's exactness rests on that."""
+    B = q.slots.shape[0]
+    dev = q.slots.device
+    total = sum(int(v.live_mask.shape[0]) for v in views)
+    scores = torch.empty((B, total), dtype=torch.float32, device=dev)
+    if not views:
+        return scores
+    slot_of, qc_ext = _compile_queries(q, df.shape[0])
+    qc_t = qc_ext.T.contiguous()                      # [U_cap+1, B]
+    base = 0
+    for v in views:
+        cap = int(v.live_mask.shape[0])
+        score_segment_ell(v, df, slot_of, qc_ext, qc_t, n_docs, avgdl,
+                          model=model, k1=k1, b=b, doc_chunk=doc_chunk,
+                          out=scores[:, base:base + cap])
+        base += cap
+    return scores
+
+
+def score_segments_batch(views, df, q: QueryBatch, n_docs, avgdl,
+                         **kw) -> torch.Tensor:
+    """The segmented dispatch seam (``device.score_segments``): the hot
+    pass, the cold walk and the tier-bypass oracle all dispatch through
+    here — see :func:`score_ell_batch` for the guard contract."""
+    rule = device_guard("score_segments", batch=int(q.slots.shape[0]),
+                        uniq=int(q.uniq.shape[0]))
+    scores = score_segments_impl(views, df, q, n_docs, avgdl, **kw)
     if rule is not None:
         scores = poison_scores(scores, q.weights, rule.min_uniq)
     return scores

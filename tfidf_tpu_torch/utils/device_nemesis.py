@@ -2,9 +2,13 @@
 
 A copy of ``tfidf_tpu/utils/device_nemesis.py`` with the same site names,
 rule grammar and env arming. The dispatch seams ``score_ell_batch``
-(``ops/ell.py``) and ``score_coo_batch`` (``ops/scoring.py``) consult it
-right before launching device work, so a chaos run can inject the failure
-modes a real card produces:
+(site ``score_ell``) and ``score_segments_batch`` (``score_segments``: the
+tiered hot pass, the cold walk and the bypass oracle) in ``ops/ell.py``,
+``score_coo_batch`` (``score_coo``, ``ops/scoring.py``), the dense plane
+(``dense``, ``ops/dense.py``) and the tier's upload ring (``upload``,
+``engine/tiering.py``: one cold segment about to cross to the card)
+consult it right before launching device work, so a chaos run can inject
+the failure modes a real card produces:
 
 - ``oom``       — device allocation failure (:class:`DeviceOOMError`);
                   with ``min_batch`` set the rule fires only for query
