@@ -71,9 +71,9 @@ beside it. Phases (any failure fails the run):
    ``serve`` workers restoring their shards at boot, a ``router``), the
    default ``Config`` with ``replication_factor=1`` and coordination
    sessions of 30 s (``FLEET_ENV``). From 64 client
-   threads, one query a ``POST /leader/start``: 4,096 sparse, 1,024
+   threads, one query a ``POST /leader/start``: 2,048 sparse, 1,024
    dense and 1,024 hybrid (rrf) queries through the leader, 1,024 sparse
-   through the router; then 2,000 new documents through
+   through the router; then 1,000 new documents through
    ``/leader/upload-batch``, each read back. Sparse replies against a
    scipy f64 oracle scoring each shard with its own statistics, dense
    against a numpy f64 brute force, hybrid against ``fusion.fuse`` of the
@@ -107,13 +107,35 @@ beside it. Phases (any failure fails the run):
    same queries tiered and through ``tier_bypass``: hits and values
    identical to the bit to each other and to 8a's; then one injected
    ``upload:transient``, which must surface, and a clean batch unchanged.
+9. the mesh (after phase 8, before the fleet), the ELL kernel at its
+   second call site: (a) phase 3's corpus and 1,024 of its queries on a
+   mesh-ELL engine of four ranks on the one card (``make_mesh((2, 2),
+   devices=["cuda:0"] * 4)``: both collectives and the ``W/2``-wide rank
+   blocks are real), bulk load and commit, served at batch 512 with the
+   launch counts reset just before and read just after (equal to the
+   eligible non-empty blocks x ranks x chunks); top-10 held to the scipy
+   oracle (ties in global-id order) and to phase 3's hits; then an append
+   burst of 0.1% (it folds into the base: the delta is floor-sized until
+   appends are seen), 1% appends + 1% deletes + 1% upserts committed into
+   the delta, served again and held to the oracle over the live docs;
+   bulk-load / host-build / commit s, device bytes, q/s, one batch's stage
+   ms, every rank block through v3 and v4 == plain (bitwise) and the
+   kernel / plain / ``torch.sparse.mm`` times per rank width beside the
+   bound; (b) BASELINE config 2's shape (100k docs, 200k vocab, 2
+   workers) as a ``lucene_parity`` mesh-COO engine on a (2, 1) mesh, held
+   to a scipy oracle with per-row statistics and Lucene's length norm;
+   (c) phase 3d's embedding column on two docs rows through
+   ``make_mesh_dense_search``, held to the f64 brute force; (d) a
+   one-process NCCL group (``initialize_multihost``, world size 1, four
+   ranks): a small mesh-ELL engine's hits equal the in-process mesh's.
+   Phase 2's cases include the mesh's rank widths 1, 4, 12, 24 and 96.
 
 After every phase with nothing armed, each engine's compute health must
 be healthy with no new fault and no fallback-served request.
 
 Then one ``{"kernels": [...]}`` line (per kernel: launches on its path,
-max abs error against the plain version, kernel / plain / library ms per
-main-path batch and the bound), and as the last line
+``launches_mesh`` on phase 9a's, max abs error against the plain version,
+kernel / plain / library ms per main-path batch and the bound), and as the last line
 ``{"ok": true, "device": {...}}``. The full record of the run goes to
 ``--out``/chip_smoke.json (default ``build/chip_smoke/``).
 """
@@ -267,6 +289,14 @@ CASES = [
     # north-star shapes: width 128 and 64 at B=512
     dict(rows_cap=131072, width=128, n_rows=98000, B=512, u_req=512),
     dict(rows_cap=262144, width=64, n_rows=250000, B=512, u_req=512),
+    # the mesh's terms split (phase 9): one rank's slice of a bucket, W/T
+    # wide (8/8, 8/2, 24/2, 48/2, 192/2), at padded row capacities
+    dict(rows_cap=131072, width=1, n_rows=120000, B=512, u_req=512),
+    dict(rows_cap=262144, width=4, n_rows=200000, B=512, u_req=512),
+    dict(rows_cap=131072, width=12, n_rows=100000, B=512, u_req=512),
+    dict(rows_cap=131072, width=24, n_rows=130000, B=512, u_req=512),
+    dict(rows_cap=65536, width=96, n_rows=60000, B=512, u_req=512,
+         ragged=True),
 ]
 
 
@@ -536,7 +566,7 @@ def check_embedding(rows, corpus, embedder, rng, n: int = 2000) -> int:
 
 
 def oracle_check(corpus, queries, hits, vocab: int, doc_names, *,
-                 stats=None, names=None) -> dict:
+                 stats=None, names=None, impacts=None) -> dict:
     """Top-10 of the port against a scipy CSR oracle with independently
     computed f64 BM25 impacts. Equal scores rank by the engine's row order
     (``doc_names``, the commit layout), as the engine breaks ties. Ids
@@ -549,19 +579,24 @@ def oracle_check(corpus, queries, hits, vocab: int, doc_names, *,
     name is not among them (a deleted doc) fails. ``stats`` = (df [vocab],
     N, avgdl) are the collection statistics to score with (default: the
     corpus's own) — a streaming index counts tombstoned docs until their
-    segment merges."""
+    segment merges. ``impacts`` (f64 per posting) replaces those BM25
+    impacts outright (a parity mesh's per-row statistics)."""
     import scipy.sparse as sp
     offsets, ids, tfs, lengths = corpus
     n_docs = offsets.shape[0] - 1
     row = np.repeat(np.arange(n_docs), np.diff(offsets))
-    if stats is None:
-        df = np.bincount(ids, minlength=vocab).astype(np.float64)
-        n_stat, avgdl = n_docs, lengths.astype(np.float64).mean()
+    if impacts is not None:
+        imp = impacts
     else:
-        df, n_stat, avgdl = stats
-    k1, b = 1.2, 0.75
-    idf = np.log1p((n_stat - df + 0.5) / (df + 0.5))
-    imp = idf[ids] * tfs / (tfs + k1 * (1 - b + b * lengths[row] / avgdl))
+        if stats is None:
+            df = np.bincount(ids, minlength=vocab).astype(np.float64)
+            n_stat, avgdl = n_docs, lengths.astype(np.float64).mean()
+        else:
+            df, n_stat, avgdl = stats
+        k1, b = 1.2, 0.75
+        idf = np.log1p((n_stat - df + 0.5) / (df + 0.5))
+        imp = idf[ids] * tfs / (tfs + k1 * (1 - b + b * lengths[row]
+                                            / avgdl))
     # by term: a query's scores are the sum of its terms' columns
     M = sp.csc_matrix((imp, (row, ids.astype(np.int64))),
                       shape=(n_docs, vocab))
@@ -573,15 +608,24 @@ def oracle_check(corpus, queries, hits, vocab: int, doc_names, *,
         pos = {nm: r for r, nm in enumerate(doc_names)}
         row_of = np.fromiter((pos[nm] for nm in names), np.int64, n_docs)
         index_of = dict(zip(names, range(n_docs))).__getitem__
-    swaps = {"exact_f64_tie": 0, "near_tie": 0}
-    for i, (q, got) in enumerate(zip(queries, hits)):
-        terms, counts = np.unique([int(t[1:]) for t in q.split()],
+
+    def one(i):
+        terms, counts = np.unique([int(t[1:]) for t in queries[i].split()],
                                   return_counts=True)
         s = np.zeros(n_docs)
         for t, c in zip(terms.tolist(), counts.tolist()):
             col = slice(M.indptr[t], M.indptr[t + 1])
             s[M.indices[col]] += c * M.data[col]
-        _hold_query(i, s, got, row_of, index_of, swaps)
+        swaps = {"exact_f64_tie": 0, "near_tie": 0}
+        _hold_query(i, s, hits[i], row_of, index_of, swaps)
+        return swaps
+
+    # numpy's array loops release the GIL: one thread per core
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        per_query = list(pool.map(one, range(len(hits))))
+    swaps = {k: sum(sw[k] for sw in per_query)
+             for k in ("exact_f64_tie", "near_tie")}
     ranks = sum(len(h) for h in hits)
     return {"queries": len(hits), "ranks": ranks,
             "ids_identical": ranks - sum(swaps.values()), "swaps": swaps}
@@ -969,18 +1013,22 @@ def main_path(seed: int, n_docs: int) -> dict:
 # phase 3d: the dense plane at the north star
 # --------------------------------------------------------------------------
 
-def dense_oracle(engine, queries, hits, rows, names) -> dict:
+def dense_oracle(engine, queries, hits, rows, names, *, tie=None,
+                 embedder=None) -> dict:
     """Dense top-10 of ``queries`` against a numpy f64 brute force over
     ``rows`` (f32 ``[n, dim]``, row i = ``names[i]``), ties in the
-    column's row order (sorted names). The served order must keep the tie
-    rule; ids identical except inside a group whose f64 scores are within
-    1e-6 (an ulp of the f32 product decides there), such swaps counted;
-    scores within 1e-6 + 1e-5 |s| of the f64 score of the doc named."""
-    slot = engine.dense._slot
-    tie = np.fromiter((slot[n] for n in names), np.int64, len(names))
+    column's row order (sorted names; ``tie``: another rank per row). The
+    served order must keep the tie rule; ids identical except inside a
+    group whose f64 scores are within 1e-6 (an ulp of the f32 product
+    decides there), such swaps counted; scores within 1e-6 + 1e-5 |s| of
+    the f64 score of the doc named. ``engine`` gives the analyzer (and,
+    unless ``embedder`` is given, the column's embedder)."""
+    if tie is None:
+        slot = engine.dense._slot
+        tie = np.fromiter((slot[n] for n in names), np.int64, len(names))
     pos = {n: i for i, n in enumerate(names)}
     rows64 = rows.astype(np.float64)
-    emb = engine.dense.embedder
+    emb = embedder if embedder is not None else engine.dense.embedder
     swaps, worst = 0, 0.0
     for lo in range(0, len(queries), 64):
         Q = np.stack([emb.embed_query(engine.analyzer.counts(q))
@@ -1777,13 +1825,15 @@ def _concat_corpora(a, b):
             np.concatenate([a[3], b[3]]))
 
 
-def _segment_stats(index, vocab: int):
+def _segment_stats(segments, vocab: int):
     """Tombstone-inclusive df, N and avgdl recomputed in f64 from every
     segment's retained host postings (what the index must score with:
-    a tombstoned doc counts until its segment merges)."""
+    a tombstoned doc counts until its segment merges). ``segments`` is a
+    snapshot's list: a background merge may replace the index's own list
+    after the commit, and the snapshot's stats are the ones served."""
     df = np.zeros(vocab, np.float64)
     n, total = 0, 0.0
-    for seg in index._segments:
+    for seg in segments:
         t = np.concatenate([d.term_ids for d in seg.host_docs])
         df += np.bincount(t, minlength=vocab)[:vocab]
         n += seg.n_docs
@@ -1973,7 +2023,7 @@ def stream_phase(data, seed: int) -> tuple:
         raise SystemExit(f"streaming: {index.num_live_docs} live docs, "
                          f"expected {n_docs - n_mut}")
     # the incremental device stats against a recompute from the segments
-    stats = _segment_stats(index, snap.df.shape[0])
+    stats = _segment_stats(snap.segments, snap.df.shape[0])
     # df and N are integer counts, equal exactly; avgdl within f32
     # rounding (each segment's length sum is an f32 sum, as in the JAX
     # package)
@@ -2157,6 +2207,571 @@ def streaming_phases(data, seed: int, work: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 9: the mesh — the ELL kernel at its second call site
+# --------------------------------------------------------------------------
+
+MESH_SHAPE = (2, 2)            # docs x terms ranks, all four on the one card
+MESH_QUERIES = 1024            # phase 3's served queries through the mesh
+MESH_WARM_APPEND = 0.001       # share of docs in the first append commit
+MESH_MUTATE = 0.01             # share appended, deleted and upserted after
+C2_DOCS = 100_000              # BASELINE config 2: "100k-doc subset,
+C2_VOCAB = 200_000             # 200k vocab, 2 workers"
+GROUP_DOCS = 20_000            # phase 9d's small corpus
+
+
+def card_mesh(shape, dev: str = "cuda:0"):
+    """A mesh of ``shape`` ranks, every one on ``dev``."""
+    from tfidf_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+
+
+def bulk_mesh_engine(mesh, corpus, vocab: int, **cfg):
+    """A mesh engine on ``mesh`` bulk-loaded with ``corpus`` (docs
+    ``d<i>``, vocabulary ``t<i>`` registered first) and committed.
+    Returns (engine, bulk-load s, commit s)."""
+    from tfidf_tpu_torch.engine.engine import Engine
+    from tfidf_tpu_torch.utils.config import Config
+    engine = Engine(Config(engine_mode="mesh", query_batch=NS_BATCH, **cfg),
+                    mesh=mesh)
+    if engine.device.type != "cuda" or engine.dense is not None:
+        raise SystemExit(f"mesh: engine on {engine.device}, dense "
+                         f"{engine.dense}")
+    offsets, ids, tfs, lengths = corpus
+    engine.vocab.extend(f"t{i}" for i in range(vocab))
+    t0 = time.perf_counter()
+    engine.index.bulk_load_packed([f"d{i}" for i in range(
+        offsets.shape[0] - 1)], offsets, ids, tfs, lengths)
+    load_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    engine.commit()
+    sync()
+    return engine, load_s, time.perf_counter() - t0
+
+
+def gid_order(snap) -> list:
+    """The live docs' names in global-id order (the mesh's tie order:
+    equal scores rank by lower global id)."""
+    out = []
+    for s, sd in enumerate(snap.shard_docs):
+        base = [sd[int(i)] for i in snap.perms[s]]
+        out += [e.name for e in base + sd[snap.base_counts[s]:] if e.live]
+    return out
+
+
+def hold_same(got_hits, want_hits, what: str) -> int:
+    """Hits of one engine against another's on the same queries: scores
+    within relative 1e-6 rank by rank, names identical except inside a
+    near-tie group (the other engine scores the name within relative 1e-6
+    of that rank's score). Returns the swaps."""
+    swaps = 0
+    for i, (got, want) in enumerate(zip(got_hits, want_hits)):
+        if len(got) != len(want):
+            raise SystemExit(f"{what}: query {i} has {len(got)} hits, "
+                             f"{len(want)} expected")
+        ws = {h.name: h.score for h in want}
+        for g, w in zip(got, want):
+            if abs(g.score - w.score) > 1e-6 * abs(w.score):
+                raise SystemExit(f"{what}: query {i}: {g} vs {w}")
+            if g.name != w.name:
+                other = ws.get(g.name, want[-1].score)
+                if abs(other - w.score) > 1e-6 * abs(w.score):
+                    raise SystemExit(f"{what}: query {i}: {g} where "
+                                     f"{w} is expected")
+                swaps += 1
+    return swaps
+
+
+def mesh_blocks(snap, B: int, u_cap: int) -> list:
+    """(imp_t, term_t, live rows, bucket) of every rank's non-empty block
+    inside the kernel envelope — what the mesh path launches per batch."""
+    from tfidf_tpu_torch.ops.ell import _pallas_eligible
+    base, T = snap.base, len(snap.base.impact) // len(snap.shard_docs)
+    out = []
+    for r, (imps, terms) in enumerate(zip(base.impact, base.term)):
+        for b, (it, tt) in enumerate(zip(imps, terms)):
+            live = int(base.block_live[r // T, b])
+            if live and _pallas_eligible(it.shape[1], B, u_cap):
+                out.append((it, tt, live, b))
+    return out
+
+
+def mesh_kernel_times(engine, qb) -> dict:
+    """The mesh path's kernel blocks (every rank's ``[W/2, rows_cap]``
+    slices) on one batch: each through v4 and v3 against its plain
+    version, bitwise; then per bucket width and in all, the v4 kernel,
+    the plain version and ``torch.sparse.mm`` of the same blocks, beside
+    the bound (each block's live postings read and scores written once,
+    one multiply and one add per hit and query with a non-zero weight;
+    ``slot_of`` and ``qc_t`` once per batch)."""
+    from tfidf_tpu_torch.ops import ell as E
+    from tfidf_tpu_torch.ops.scoring import _compile_queries
+    snap = engine.index.snapshot
+    slot_of, qc_ext = _compile_queries(qb, snap.df_g.shape[0])
+    qc_t = qc_ext.T.contiguous()
+    u1, B = qc_t.shape
+    blocks = mesh_blocks(snap, B, u1 - 1)
+    worst = 0.0
+    for it, tt, n, _b in blocks:
+        plain = E.score_block_plain(it, tt, slot_of, qc_t, n)
+        for a in E.A_BUILD_VARIANTS:
+            out = E.score_block_kernel(it, tt, slot_of, qc_t, n, a_build=a,
+                                       out=torch.zeros_like(plain))
+            sync()
+            if not torch.equal(out, plain):
+                raise SystemExit(f"mesh block {tuple(it.shape)} {a}: kernel "
+                                 f"!= plain (max|d| "
+                                 f"{float((out - plain).abs().max())})")
+        del plain, out
+    qnnz = (qc_t != 0).sum(1)
+    once = 4 * slot_of.numel() + 4 * u1 * B
+    out = torch.empty((B, snap.base.doc_cap), device="cuda")
+    res = {"blocks": len(blocks), "u_cap": u1 - 1, "max_abs_err": worst,
+           "by_width": {}}
+    groups = {}
+    for blk in blocks:
+        groups.setdefault(int(blk[0].shape[0]), []).append(blk)
+    groups["all"] = blocks
+    for key, grp in groups.items():
+        nbytes = once if key == "all" else 0
+        ops = 0
+        for it, tt, n, _b in grp:
+            bb, oo, _dense = block_work(it, tt, slot_of, qnnz, B, n)
+            nbytes += bb
+            ops += oo
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_UNFUSED_OPS_PER_S * 1e3
+        mats = [library_operand(it, tt, slot_of, u1, n)
+                for it, tt, n, _b in grp]
+        row = {"blocks": len(grp),
+               "rows": sorted({int(it.shape[1]) for it, *_ in grp}),
+               "v4_ms": cuda_ms(lambda: [E.score_block_kernel(
+                   it, tt, slot_of, qc_t, n, a_build="v4", out=out)
+                   for it, tt, n, _b in grp], reps=5),
+               # the plain version takes seconds: one run a width after
+               # its warm-up, and in all the widths' sum
+               "plain_ms": (sum(r["plain_ms"] for r in
+                                res["by_width"].values()) if key == "all"
+                            else cuda_ms(lambda: [E.score_block_plain(
+                                it, tt, slot_of, qc_t, n)
+                                for it, tt, n, _b in grp], reps=1)),
+               "library_ms": cuda_ms(lambda: [torch.sparse.mm(A, qc_t)
+                                              for A in mats], reps=5),
+               "bytes": nbytes, "ops": ops,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        del mats
+        if key == "all":
+            row["v3_ms"] = cuda_ms(lambda: [E.score_block_kernel(
+                it, tt, slot_of, qc_t, n, a_build="v3", out=out)
+                for it, tt, n, _b in grp], reps=5)
+            res.update(row)
+        else:
+            res["by_width"][key] = row
+    del out
+    return res
+
+
+def mesh_breakdown(engine, queries) -> dict:
+    """Per-stage ms of one batch through the mesh-ELL step, each stage
+    closed by a synchronize: vectorize (host), compile, the ELL blocks,
+    the residual and the delta (``coo``), the terms psum, the per-row
+    top-k, the docs all_gather, the merge, the fetch."""
+    import contextlib
+    from tfidf_tpu_torch.ops.topk import fetch_packed
+    s = engine.searcher
+    snap = engine.index.snapshot
+    ms = {}
+
+    @contextlib.contextmanager
+    def stage(name):
+        sync()
+        t0 = time.perf_counter()
+        yield
+        sync()
+        ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    with stage("vectorize"):
+        qb, _ = s._vectorize(queries, NS_BATCH)
+    packed = s._get_search_fn(TOP_K)(snap.base, snap.delta, snap.df_g,
+                                     snap.n_docs, snap.avgdl, qb,
+                                     stage=stage)
+    with stage("fetch"):
+        fetch_packed(packed)
+    ms["total"] = sum(ms.values())
+    return ms, qb
+
+
+def serve_mesh(engine, queries) -> tuple:
+    """``search_batch`` over ``queries`` (batches of NS_BATCH) with the
+    launch counts reset just before and read just after: (hits, q/s,
+    launches)."""
+    from tfidf_tpu_torch.ops import ell as E
+    E.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    hits = engine.search_batch(queries, k=TOP_K)
+    sync()
+    secs = time.perf_counter() - t0
+    return hits, len(queries) / secs, dict(E.launches)
+
+
+def expected_mesh_launches(snap, n_queries: int) -> int:
+    """Eligible non-empty blocks x ranks x chunks (u_cap is a power of
+    two >= 256 for every batch, so it never decides eligibility)."""
+    return len(mesh_blocks(snap, NS_BATCH, 256)) * (-(-n_queries
+                                                       // NS_BATCH))
+
+
+def mesh_ell_phase(data, seed: int) -> dict:
+    """Phase 9a: the mesh-ELL engine at the north star on four ranks of
+    the one card: bulk load, commit, serve phase 3's queries, hold them to
+    the scipy oracle and to phase 3's local engine; then an append burst,
+    1% appends + 1% deletes + 1% upserts into the delta, serve again and
+    hold the live docs to the oracle."""
+    from tfidf_tpu_torch.parallel import mesh_ell as ME
+    from tfidf_tpu_torch.parallel import mesh_ell_index as MI
+    corpus = data["corpus"]
+    n_docs = corpus[0].shape[0] - 1
+    queries = data["queries"][:MESH_QUERIES]
+    timing = {"build_s": 0.0, "place_s": 0.0}
+    real_build, real_place = MI.build_mesh_ell, ME.place_mesh_ell
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            timing[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    MI.build_mesh_ell = timed(real_build, "build_s")
+    ME.place_mesh_ell = timed(real_place, "place_s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        engine, load_s, commit_s = bulk_mesh_engine(
+            card_mesh(MESH_SHAPE), corpus, NS_VOCAB)
+    finally:
+        MI.build_mesh_ell, ME.place_mesh_ell = real_build, real_place
+    index = engine.index
+    if not isinstance(index, MI.MeshEllIndex):
+        raise SystemExit(f"mesh: {type(index).__name__}, not MeshEllIndex")
+    snap = index.snapshot
+    host_build_s = timing["build_s"] - timing["place_s"]
+    res = {"shape": list(MESH_SHAPE), "docs": n_docs,
+           "bulk_load_s": load_s, "commit_s": commit_s,
+           "host_build_s": host_build_s, "place_s": timing["place_s"],
+           "device_bytes": metric("mesh_ell_device_bytes"),
+           "block_live": snap.base.block_live.tolist(),
+           "rows_cap": [int(x.shape[1]) for x in snap.base.impact[0]],
+           "widths_per_rank": [int(x.shape[0])
+                               for x in snap.base.impact[0]],
+           "refresh_ms": cuda_ms(lambda: index._refresh_fn(
+               snap.base, snap.df_g, snap.n_docs, snap.avgdl), reps=3)}
+    log(f"[mesh] {n_docs} docs on a {MESH_SHAPE} mesh of one card: bulk "
+        f"load {load_s:.1f}s, commit {commit_s:.1f}s (host build "
+        f"{host_build_s:.1f}s, upload {timing['place_s']:.1f}s), impact "
+        f"refresh {res['refresh_ms']:.1f} ms, base {res['device_bytes']:.0f}"
+        f" bytes, rank widths {res['widths_per_rank']} rows "
+        f"{res['rows_cap']}")
+
+    engine.search_batch(queries[:NS_BATCH], k=TOP_K)        # warm
+    hits, qps, launches = serve_mesh(engine, queries)
+    want = expected_mesh_launches(snap, len(queries))
+    if launches["v4"] != want or launches["v3"] != 0 or want == 0:
+        raise SystemExit(f"mesh launches {launches}, expected v4={want}")
+    res.update(qps=qps, launches=launches, expected_launches=want,
+               memory={"allocated_bytes": torch.cuda.memory_allocated(),
+                       "peak_allocated_bytes":
+                       torch.cuda.max_memory_allocated()})
+    log(f"[mesh] served {len(queries)} queries: {qps:.1f} q/s, launches "
+        f"{launches} (= eligible blocks x ranks x chunks), memory "
+        f"{res['memory']}")
+    t0 = time.perf_counter()
+    res["oracle"] = oracle_check(corpus, queries[:256], hits[:256],
+                                 NS_VOCAB, gid_order(snap))
+    res["oracle"]["seconds"] = time.perf_counter() - t0
+    res["local_swaps"] = hold_same(hits, data["hits"][:len(queries)],
+                                   "mesh vs local engine")
+    log(f"[mesh] oracle top-{TOP_K} OK: {res['oracle']}; the local "
+        f"engine's hits on {len(queries)} queries held (rel 1e-6), "
+        f"{res['local_swaps']} near-tie swaps")
+    res["breakdown_ms"], qb = mesh_breakdown(engine, queries[-NS_BATCH:])
+    log(f"[mesh] one {NS_BATCH}-query batch, ms: {res['breakdown_ms']}")
+    res["kernel"] = mesh_kernel_times(engine, qb)
+    log(f"[mesh] kernel blocks: {res['kernel']}")
+
+    # the append burst, then 1% appends + 1% deletes + 1% upserts
+    rng = np.random.default_rng(seed + 9)
+    n_warm, n_mut = int(n_docs * MESH_WARM_APPEND), int(n_docs * MESH_MUTATE)
+    warm = make_doc_arrays(rng, n_warm, NS_VOCAB, NS_AVG_LEN)
+    new = make_doc_arrays(rng, n_mut, NS_VOCAB, NS_AVG_LEN)
+    up = make_doc_arrays(rng, n_mut, NS_VOCAB, NS_AVG_LEN)
+    picked = rng.choice(n_docs, size=2 * n_mut, replace=False)
+    deleted, upserted = np.sort(picked[:n_mut]), np.sort(picked[n_mut:])
+
+    def add(arrays, names):
+        off = arrays[0].tolist()
+        for j, name in enumerate(names):
+            index.add_document_arrays(name, arrays[1][off[j]:off[j + 1]],
+                                      arrays[2][off[j]:off[j + 1]],
+                                      float(arrays[3][j]))
+
+    def commit() -> float:
+        sync()
+        t0 = time.perf_counter()
+        engine.commit()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    r0, a0 = index.rebuilds, index.appends
+    add(warm, [f"w{j}" for j in range(n_warm)])
+    res["burst"] = {"docs": n_warm, "commit_ms": commit(),
+                    "folded": index.rebuilds > r0,
+                    "appended": index.appends > a0}
+    r1, a1 = index.rebuilds, index.appends
+    add(new, [f"n{j}" for j in range(n_mut)])
+    for d in deleted.tolist():
+        if not engine.delete(f"d{d}"):
+            raise SystemExit(f"mesh: delete of d{d} found nothing")
+    add(up, [f"d{d}" for d in upserted.tolist()])
+    res["mutation"] = {"appended": n_mut, "deleted": n_mut,
+                       "upserted": n_mut, "commit_ms": commit()}
+    snap = index.snapshot
+    in_delta = int(snap.delta.n_live.sum())
+    if index.rebuilds != r1 or index.appends <= a1 or in_delta < 2 * n_mut:
+        raise SystemExit(f"mesh: the mutation commit did not land in the "
+                         f"delta (rebuilds {r1}->{index.rebuilds}, appends "
+                         f"{a1}->{index.appends}, delta {in_delta} docs)")
+    res["mutation"]["delta_docs"] = in_delta
+    log(f"[mesh] append burst of {n_warm} docs committed in "
+        f"{res['burst']['commit_ms']:.0f} ms (folded into the base: "
+        f"{res['burst']['folded']}); {n_mut} appends + {n_mut} deletes + "
+        f"{n_mut} upserts committed in {res['mutation']['commit_ms']:.0f} "
+        f"ms, {in_delta} docs in the delta")
+    # the first batch after the commit pays the delta's segment plans and
+    # the wider score tensors' first allocation: timed on its own
+    sync()
+    t0 = time.perf_counter()
+    engine.search_batch(queries[:NS_BATCH], k=TOP_K)
+    sync()
+    res["mutation"]["first_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    hits2, qps2, launches2 = serve_mesh(engine, queries)
+    want2 = expected_mesh_launches(snap, len(queries))
+    if launches2["v4"] != want2 or want2 == 0:
+        raise SystemExit(f"mesh launches after the mutation {launches2}, "
+                         f"expected v4={want2}")
+    keep = np.setdiff1d(np.arange(n_docs), picked)
+    live = _concat_corpora(_concat_corpora(_concat_corpora(
+        _gather_docs(corpus, keep), warm), new), up)
+    live_names = ([f"d{j}" for j in keep.tolist()]
+                  + [f"w{j}" for j in range(n_warm)]
+                  + [f"n{j}" for j in range(n_mut)]
+                  + [f"d{d}" for d in upserted.tolist()])
+    dead = {f"d{d}" for d in deleted.tolist()}
+    if any(h.name in dead for hs in hits2 for h in hs):
+        raise SystemExit("mesh: a deleted doc was returned")
+    t0 = time.perf_counter()
+    res["oracle_after"] = oracle_check(live, queries[:256], hits2[:256],
+                                       NS_VOCAB, gid_order(snap),
+                                       names=live_names)
+    res["oracle_after"]["seconds"] = time.perf_counter() - t0
+    fresh = {f"n{j}" for j in range(n_mut)} | {f"d{d}" for d in
+                                                upserted.tolist()}
+    res.update(qps_after=qps2, launches_after=launches2,
+               expected_launches_after=want2,
+               delta_hits=sum(h.name in fresh for hs in hits2 for h in hs))
+    res["breakdown_ms_after"], _ = mesh_breakdown(engine,
+                                                  queries[-NS_BATCH:])
+    log(f"[mesh] after the mutation: first batch "
+        f"{res['mutation']['first_batch_ms']:.0f} ms, then {qps2:.1f} q/s, "
+        f"launches {launches2}; one batch, ms: {res['breakdown_ms_after']}")
+    log(f"[mesh] after the mutation: {qps2:.1f} q/s, launches {launches2}; "
+        f"oracle over the live docs OK: {res['oracle_after']}; "
+        f"{res['delta_hits']} hits on delta docs")
+    check_clean(engine, "mesh-ELL engine")
+    return res
+
+
+def lucene_norm_length(dl: np.ndarray) -> np.ndarray:
+    """Lucene's 1-byte length norm round-trip (``SmallFloat.intToByte4``
+    then ``byte4ToInt``): lengths below 24 stay exact; above, ``24 + v``
+    keeps the 4 leading bits of ``v``."""
+    v = np.maximum(dl.astype(np.int64) - 24, 0)
+    shift = np.maximum(np.floor(np.log2(np.maximum(v, 1))).astype(
+        np.int64) - 3, 0)
+    return np.where(dl < 24, dl, 24 + ((v >> shift) << shift)).astype(
+        np.float64)
+
+
+def mesh_parity_phase(seed: int) -> dict:
+    """Phase 9b: BASELINE config 2's shape (100k docs, 200k vocab, 2
+    workers) as a ``lucene_parity`` mesh-COO engine on two ranks of the
+    card: each docs row scores against its own statistics, as each Java
+    worker does; held to a scipy oracle with per-row statistics and
+    Lucene's length norm."""
+    rng = np.random.default_rng(seed + 10)
+    corpus = make_doc_arrays(rng, C2_DOCS, C2_VOCAB, NS_AVG_LEN)
+    queries = make_queries(rng, C2_VOCAB, 2 * NS_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    engine, load_s, commit_s = bulk_mesh_engine(
+        card_mesh((2, 1)), corpus, C2_VOCAB, lucene_parity=True)
+    if type(engine.index).__name__ != "MeshIndex" \
+            or engine.searcher.global_idf:
+        raise SystemExit("mesh parity: not the per-row-statistics COO mesh")
+    engine.search_batch(queries[:NS_BATCH], k=TOP_K)         # warm
+    hits, qps, _launches = serve_mesh(engine, queries)
+    # the oracle: doc i on row i % 2, each row's df, N and RAW avgdl, the
+    # quantized length in the norm
+    offsets, ids, tfs, lengths = corpus
+    row = np.repeat(np.arange(C2_DOCS), np.diff(offsets))
+    shard = row % 2
+    k1, b = 1.2, 0.75
+    imp = np.zeros(ids.shape[0])
+    for s in range(2):
+        m = shard == s
+        mine = np.arange(s, C2_DOCS, 2)
+        df = np.bincount(ids[m], minlength=C2_VOCAB).astype(np.float64)
+        n = mine.shape[0]
+        avgdl = lengths[mine].astype(np.float64).mean()
+        idf = np.log1p((n - df + 0.5) / (df + 0.5))
+        qdl = lucene_norm_length(lengths[row[m]])
+        imp[m] = idf[ids[m]] * tfs[m] / (tfs[m] + k1 * (1 - b + b * qdl
+                                                         / avgdl))
+    gid_names = [f"d{i}" for s in range(2) for i in range(s, C2_DOCS, 2)]
+    t0 = time.perf_counter()
+    oracle = oracle_check(corpus, queries[:256], hits[:256], C2_VOCAB,
+                          gid_names, impacts=imp)
+    oracle["seconds"] = time.perf_counter() - t0
+    res = {"shape": [2, 1], "docs": C2_DOCS, "vocab": C2_VOCAB,
+           "bulk_load_s": load_s, "commit_s": commit_s, "qps": qps,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "oracle": oracle}
+    log(f"[mesh] config 2 parity mesh (2 rows, per-row statistics): "
+        f"{C2_DOCS} docs, commit {commit_s:.1f}s, {qps:.1f} q/s; oracle "
+        f"with per-row statistics OK: {oracle}")
+    check_clean(engine, "mesh parity engine")
+    return res
+
+
+def mesh_dense_phase(data) -> dict:
+    """Phase 9c: phase 3d's 1M-doc embedding column on two docs rows of
+    the card through ``shard_dense_column`` / ``make_mesh_dense_search``,
+    512 of phase 3's queries held to the f64 brute force (phase 3d's
+    rule; ties toward the lower doc)."""
+    from types import SimpleNamespace
+
+    from tfidf_tpu_torch.engine.dense import _pad_dim
+    from tfidf_tpu_torch.engine.embedder import get_embedder
+    from tfidf_tpu_torch.ops.analyzer import Analyzer
+    from tfidf_tpu_torch.ops.topk import unpack_topk
+    from tfidf_tpu_torch.parallel.mesh_dense import (make_mesh_dense_search,
+                                                     shard_dense_column)
+    from tfidf_tpu_torch.utils.config import Config
+    c = Config()
+    rows = data["rows"]
+    n = rows.shape[0]
+    embedder = get_embedder(c.embedding_model, c.embedding_dim)
+    analyzer = Analyzer(lowercase=c.lowercase,
+                        stopwords=frozenset(c.stopwords),
+                        max_token_length=c.max_token_length)
+    mesh = card_mesh((2, 1))
+    dim_pad = _pad_dim(embedder.dim)
+    t0 = time.perf_counter()
+    column = shard_dense_column(mesh, [rows[:n // 2], rows[n // 2:]],
+                                dim_pad)
+    sync()
+    place_s = time.perf_counter() - t0
+    queries = data["queries"][:NS_BATCH]
+    q = np.zeros((NS_BATCH, dim_pad), np.float32)
+    for i, text in enumerate(queries):
+        q[i, :embedder.dim] = embedder.embed_query(analyzer.counts(text))
+    q = torch.from_numpy(q).cuda()
+    search = make_mesh_dense_search(mesh, k=TOP_K)
+    search(q, *column)                                    # warm
+    sync()
+    t0 = time.perf_counter()
+    packed = search(q, *column)
+    sync()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    vals, ids = unpack_topk(packed)
+    names = [f"d{i}" for i in range(n)]
+    hits = [[(names[int(d)], float(v)) for v, d in zip(vals[i], ids[i])]
+            for i in range(NS_BATCH)]
+    oracle = dense_oracle(SimpleNamespace(analyzer=analyzer), queries[:256],
+                          hits[:256], rows, names,
+                          tie=np.arange(n, dtype=np.int64),
+                          embedder=embedder)
+    res = {"rows": n, "place_s": place_s, "batch_ms": batch_ms,
+           "qps": NS_BATCH / batch_ms * 1e3, "oracle": oracle}
+    log(f"[mesh] dense column on 2 rows: {NS_BATCH}-query batch "
+        f"{batch_ms:.2f} ms ({res['qps']:.1f} q/s); f64 oracle OK: "
+        f"{oracle}")
+    return res
+
+
+def mesh_group_phase(seed: int) -> dict:
+    """Phase 9d: a one-process NCCL group (world size 1) on the card: a
+    mesh-ELL engine whose docs collectives go through NCCL answers a
+    small corpus exactly as the in-process engine does."""
+    from tfidf_tpu_torch.ops import ell as E
+    from tfidf_tpu_torch.parallel import mesh as M
+    from tfidf_tpu_torch.parallel.collectives import ProcessGroup
+    rng = np.random.default_rng(seed + 11)
+    corpus = make_doc_arrays(rng, GROUP_DOCS, 50_000, NS_AVG_LEN)
+    queries = make_queries(rng, 50_000, NS_BATCH)
+    cfg = dict(min_doc_capacity=256)
+    inproc, _, _ = bulk_mesh_engine(card_mesh(MESH_SHAPE), corpus, 50_000,
+                                    **cfg)
+    want = inproc.search_batch(queries, k=TOP_K)
+    port = free_ports(1)[0]
+    t0 = time.perf_counter()
+    M.initialize_multihost(f"127.0.0.1:{port}", 1, 0,
+                           local_devices=["cuda:0"] * 4)
+    init_s = time.perf_counter() - t0
+    try:
+        mesh = M.make_mesh(MESH_SHAPE)
+        if not isinstance(mesh.comm, ProcessGroup):
+            raise SystemExit("mesh group: the mesh is not on the group")
+        engine, _, _ = bulk_mesh_engine(mesh, corpus, 50_000, **cfg)
+        E.reset_launches()
+        got = engine.search_batch(queries, k=TOP_K)
+        launches = dict(E.launches)
+    finally:
+        M.shutdown_multihost()
+    if got != want:
+        raise SystemExit("mesh group: the NCCL mesh's hits differ from the "
+                         "in-process mesh's")
+    if launches["v4"] == 0:
+        raise SystemExit("mesh group: no kernel launch")
+    res = {"docs": GROUP_DOCS, "init_s": init_s, "launches": launches,
+           "hits_identical": True}
+    log(f"[mesh] NCCL group of one process (4 ranks): init {init_s:.2f}s, "
+        f"hits identical to the in-process mesh on {len(queries)} queries,"
+        f" launches {launches}")
+    return res
+
+
+def mesh_phases(data, seed: int) -> dict:
+    """Phase 9: 9a the mesh-ELL north star, 9b config 2's parity mesh,
+    9c the mesh dense column, 9d a one-process NCCL group."""
+    t0 = time.perf_counter()
+    res = {"ell": mesh_ell_phase(data, seed)}
+    torch.cuda.empty_cache()
+    res["parity"] = mesh_parity_phase(seed)
+    torch.cuda.empty_cache()
+    res["dense"] = mesh_dense_phase(data)
+    torch.cuda.empty_cache()
+    res["group"] = mesh_group_phase(seed)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] phase 9 took {res['seconds']:.1f}s")
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 7: the fleet — the port's CLI, one process per node, on the card
 # --------------------------------------------------------------------------
 
@@ -2164,10 +2779,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SMI = "nvidia-smi"
 FLEET_DEVICE = "cuda"      # every serve process's --device
 FLEET_CLIENTS = 64         # concurrent client threads, one query a POST
-FLEET_SPARSE = 4096        # sparse queries through the leader
+# the sparse window and the uploads were 4,096 queries and 2,000 docs
+# until the mesh phase joined the run: halved to keep all nine phases
+# well inside the run's time limit
+FLEET_SPARSE = 2048        # sparse queries through the leader
 FLEET_STAGED = 1024        # dense, hybrid (rrf), router queries, and the
                            # replies of each mode held to the oracles
-FLEET_UPLOADS = 2000       # new documents through /leader/upload-batch
+FLEET_UPLOADS = 1000       # new documents through /leader/upload-batch
 FLEET_UPLOAD_CHUNK = 500   # documents per upload-batch request (the CLI's)
 FLEET_BOOT_S = 300.0       # deadline for the fleet to serve the corpus
 # the deployment: the default Config with the reference's single-copy
@@ -2898,7 +3516,7 @@ def main() -> int:
         worker["compute"] = compute_phase(ctx)
         # the fleet's two shard checkpoints, from phase 3's corpus
         data = {"corpus": ctx["corpus"], "rows": ctx["rows"],
-                "queries": ctx["served"]}
+                "queries": ctx["served"], "hits": ctx["hits"]}
         del ctx
         torch.cuda.empty_cache()
         shards = fleet_shards(data, args.work)
@@ -2911,6 +3529,9 @@ def main() -> int:
         log(f"[stream] the segment scorer's {streaming['scorer']['ms']:.2f}"
             f" ms against the ELL kernel's {main_res['kernel']['v4_ms']:.2f}"
             f" ms on the same corpus (phase 3, precomputed impacts)")
+        torch.cuda.empty_cache()
+        # ---- phase 9: the mesh ----
+        mesh = mesh_phases(data, args.seed)
         # ---- phase 7: the fleet, one process per node ----
         fleet = fleet_phase(data, shards, args.seed, args.work, args.out)
     finally:
@@ -2920,7 +3541,9 @@ def main() -> int:
     line = {"kernels": [
         {"name": f"ell_score_{a}", "route": "cuda", "source": SOURCE,
          "replaces": KERNELS[a], "launches": main_res["launches"][a],
-         "max_abs_err": max(cases["max_abs_err"], kt["max_abs_err"]),
+         "launches_mesh": mesh["ell"]["launches"][a],
+         "max_abs_err": max(cases["max_abs_err"], kt["max_abs_err"],
+                            mesh["ell"]["kernel"]["max_abs_err"]),
          "bitwise": True,   # every case and block was held to equality
          "ms": kt[f"{a}_ms"], "kernel_ms": kt[f"{a}_ms"],
          "plain_ms": kt["plain_ms"],
@@ -2934,7 +3557,7 @@ def main() -> int:
                    "main": main_res, "dense": dense, "text": text,
                    "worker": worker,
                    "durable": durable, "streaming": streaming,
-                   "fleet": fleet,
+                   "mesh": mesh, "fleet": fleet,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

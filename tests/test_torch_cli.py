@@ -105,45 +105,84 @@ def _stop(procs):
     return codes
 
 
+class PortTaken(Exception):
+    """A node exited because its port was bound by another process of the
+    box between ``_free_ports`` and the node's own bind."""
+
+
+def _boot(procs, logs, url, log_path):
+    """Wait until ``url`` answers; raise :class:`PortTaken` when the node
+    died on a taken port (the caller picks new ports), fail otherwise."""
+    if wait_until(lambda: _up(url) or procs[-1].poll() is not None,
+                  timeout=BOOT_S) and _up(url):
+        return
+    text = log_path.read_text()
+    if procs[-1].poll() is not None \
+            and "address already in use" in text.lower():
+        _stop(procs)
+        for log in logs:
+            log.close()
+        raise PortTaken(text)
+    raise AssertionError(text)
+
+
+def _with_free_ports(start, attempts=3):
+    """``start(attempt)`` with fresh ports until no node finds its port
+    taken (other tests of the box bind ephemeral ports too)."""
+    for attempt in range(attempts):
+        try:
+            return start(attempt)
+        except PortTaken:
+            if attempt == attempts - 1:
+                raise
+
+
 @pytest.fixture(scope="module")
 def port_fleet(tmp_path_factory):
     """Leader (embedded coordinator), one worker and a router, each a
     ``python -m tfidf_tpu_torch`` process with jax blocked."""
-    tmp = tmp_path_factory.mktemp("port_cli")
-    env = _blocked_env(tmp)
-    coord, lport, wport, rport = _free_ports(4)
-    caddr = f"127.0.0.1:{coord}"
-    logs = []
+    base = tmp_path_factory.mktemp("port_cli")
+    env = _blocked_env(base)
+    logs, procs = [], []
 
-    def spawn(tag, *argv):
-        log = open(tmp / f"{tag}.log", "w")
-        logs.append(log)
-        return subprocess.Popen(
-            [sys.executable, "-m", "tfidf_tpu_torch", *argv], cwd=tmp,
-            env=env, stdout=log, stderr=subprocess.STDOUT)
+    def start(attempt):
+        tmp = base / f"try{attempt}"
+        tmp.mkdir()
+        logs.clear()
+        procs.clear()
+        coord, lport, wport, rport = _free_ports(4)
+        caddr = f"127.0.0.1:{coord}"
 
-    def node(tag, port, *extra):
-        return spawn(tag, "serve", "--device", "cpu", "--host", "127.0.0.1",
-                     "--port", str(port), "--coordinator-address", caddr,
-                     "--documents-path", str(tmp / tag / "documents"),
-                     "--index-path", str(tmp / tag / "index"), *extra)
+        def spawn(tag, *argv):
+            log = open(tmp / f"{tag}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tfidf_tpu_torch", *argv], cwd=tmp,
+                env=env, stdout=log, stderr=subprocess.STDOUT))
 
-    procs = [node("leader", lport, "--embedded-coordinator")]
-    leader = f"http://127.0.0.1:{lport}"
-    worker = f"http://127.0.0.1:{wport}"
-    router = f"http://127.0.0.1:{rport}"
-    try:
-        assert wait_until(lambda: _up(leader), timeout=BOOT_S), \
-            (tmp / "leader.log").read_text()
-        procs.append(node("worker", wport))
-        assert wait_until(lambda: _up(worker), timeout=BOOT_S)
-        procs.append(spawn("router", "router", "--coordinator", caddr,
-                           "--host", "127.0.0.1", "--port", str(rport)))
-        assert wait_until(lambda: _up(router), timeout=BOOT_S)
+        def node(tag, port, *extra):
+            spawn(tag, "serve", "--device", "cpu", "--host", "127.0.0.1",
+                  "--port", str(port), "--coordinator-address", caddr,
+                  "--documents-path", str(tmp / tag / "documents"),
+                  "--index-path", str(tmp / tag / "index"), *extra)
+
+        leader = f"http://127.0.0.1:{lport}"
+        worker = f"http://127.0.0.1:{wport}"
+        router = f"http://127.0.0.1:{rport}"
+        node("leader", lport, "--embedded-coordinator")
+        _boot(procs, logs, leader, tmp / "leader.log")
+        node("worker", wport)
+        _boot(procs, logs, worker, tmp / "worker.log")
+        spawn("router", "router", "--coordinator", caddr,
+              "--host", "127.0.0.1", "--port", str(rport))
+        _boot(procs, logs, router, tmp / "router.log")
         assert wait_until(lambda: json.loads(
             _get(leader + "/api/services")) == [worker], timeout=BOOT_S)
-        yield {"leader": leader, "worker": worker, "router": router,
-               "procs": procs, "tmp": tmp}
+        return {"leader": leader, "worker": worker, "router": router,
+                "procs": procs, "tmp": tmp}
+
+    try:
+        yield _with_free_ports(start)
     finally:
         codes = _stop(procs)
         for log in logs:
@@ -271,7 +310,78 @@ def test_ingest_and_search_match_the_jax_cli(tmp_path, capsys):
 
 
 @pytest.mark.timeout(120)
-def test_distributed_serve_is_not_ported(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+def test_distributed_serve_is_not_ported(tmp_path, capsys, monkeypatch):
+    """``serve --distributed`` joins a process group before it builds a
+    node (it is ported now; the name is kept): with no coordinator named
+    anywhere it refuses at once, saying what is missing."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "TFIDF_DIST_COORDINATOR"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         port_main(["serve", "--distributed", "--device", "cpu",
                    "--index-path", str(tmp_path / "idx")])
+
+
+@pytest.mark.timeout(180)
+def test_distributed_mesh_worker_serves_in_a_fleet(tmp_path, jax_fleet,
+                                                   capsys, no_cuda_init):
+    """A worker started with ``serve --distributed --engine-mode mesh``
+    (a process group of one over gloo; its engine a mesh of the group's
+    ranks on the CPU) serves its shard in a fleet of port processes: its
+    sparse answers through the leader equal the JAX fleet's to the bit,
+    and it answers ``/worker/names`` with null (a mesh layout cannot
+    list, as in the JAX package)."""
+    env = _blocked_env(tmp_path)
+    logs, procs = [], []
+
+    def start(attempt):
+        tmp = tmp_path / f"try{attempt}"
+        tmp.mkdir()
+        logs.clear()
+        procs.clear()
+        coord, lport, wport, gport = _free_ports(4)
+        caddr = f"127.0.0.1:{coord}"
+
+        def node(tag, port, *extra, **env_extra):
+            log = open(tmp / f"{tag}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tfidf_tpu_torch", "serve",
+                 "--device", "cpu", "--host", "127.0.0.1", "--port",
+                 str(port), "--coordinator-address", caddr,
+                 "--documents-path", str(tmp / tag / "documents"),
+                 "--index-path", str(tmp / tag / "index"), *extra],
+                cwd=tmp, env=dict(env, **env_extra), stdout=log,
+                stderr=subprocess.STDOUT))
+
+        leader = f"http://127.0.0.1:{lport}"
+        worker = f"http://127.0.0.1:{wport}"
+        node("leader", lport, "--embedded-coordinator")
+        _boot(procs, logs, leader, tmp / "leader.log")
+        node("worker", wport, "--distributed", "--engine-mode", "mesh",
+             TFIDF_DIST_COORDINATOR=f"127.0.0.1:{gport}",
+             TFIDF_DIST_NUM_PROCESSES="1", TFIDF_DIST_PROCESS_ID="0")
+        _boot(procs, logs, worker, tmp / "worker.log")
+        return leader, worker, tmp
+
+    try:
+        leader, worker, tmp = _with_free_ports(start)
+        assert wait_until(lambda: json.loads(
+            _get(leader + "/api/services")) == [worker], timeout=BOOT_S)
+        _run(port_main, capsys, "upload", CORPUS, "--leader", leader,
+             "--batch")
+        _run(jax_main, capsys, "upload", CORPUS, "--leader", jax_fleet,
+             "--batch")
+        for q in QUERIES:
+            got = json.loads(_run(port_main, capsys, "query", *q,
+                                  "--leader", leader))
+            want = json.loads(_run(jax_main, capsys, "query", *q,
+                                   "--leader", jax_fleet))
+            assert got and got == want, q
+        assert json.loads(_get(worker + "/worker/names")) == {"names": None}
+        assert "torch.distributed initialized" in \
+            (tmp / "worker.log").read_text()
+    finally:
+        codes = _stop(procs)
+        for log in logs:
+            log.close()
+    assert codes == [0] * len(procs), codes

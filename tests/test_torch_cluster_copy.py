@@ -35,8 +35,9 @@ CLI_BENCH = ("`bench` runs the TPU bench.py; the port's bench is ROADMAP "
 CLI_SIGTERM = ("serve/router/coordinator park in bounded waits: a SIGTERM "
                "handled on another thread does not interrupt a blocking "
                "Event.wait, and the process never stopped (ROADMAP queue C)")
-CLI_MESH = ("multi-host (`distributed`) is the mesh slice, ROADMAP queue A "
-            "item 3: it raises NotImplementedError")
+CLI_MESH = ("multi-host (`distributed`): the process group's backend "
+            "follows the CLI's device (NCCL on the card, gloo with --device "
+            "cpu), so the device is resolved first and passed on")
 
 VIEW_READ = ("a placement follower re-reads the placement znode only when "
              "it changed (get_data by digest): a full read of the ~39 MB "
@@ -159,7 +160,8 @@ HUNKS = {
         ({"_device", "cmd_bench", "_apply_platform_override"},
          "the port's device choice replaces the JAX platform override; "
          + CLI_BENCH),
-        ('''        # multi-host mesh over DCN: must happen before any backend use so
+        ('''    if cfg.distributed:
+        # multi-host mesh over DCN: must happen before any backend use so
         # jax.devices() spans the pod (auto-detected on TPU pods)
         from tfidf_tpu_torch.parallel.mesh import initialize_multihost
         initialize_multihost(
@@ -167,11 +169,15 @@ HUNKS = {
             num_processes=cfg.dist_num_processes or None,
             process_id=(cfg.dist_process_id
                         if cfg.dist_process_id >= 0 else None))
-''', '''        raise NotImplementedError(
-            "tfidf_tpu_torch: distributed (multi-host mesh) serving is not "
-            "ported yet (ROADMAP queue A item 3); use the tfidf_tpu package "
-            "for it")
-    device = _device(args)
+''', '''    device = _device(args)
+    if cfg.distributed:
+        from tfidf_tpu_torch.parallel.mesh import initialize_multihost
+        initialize_multihost(
+            coordinator_address=cfg.dist_coordinator or None,
+            num_processes=cfg.dist_num_processes or None,
+            process_id=(cfg.dist_process_id
+                        if cfg.dist_process_id >= 0 else None),
+            device=device)
 ''', CLI_MESH + "; " + CLI_DEVICE),
         ("engine, meta = restore_checkpoint(ckpt_dir, cfg)",
          "engine, meta = restore_checkpoint(ckpt_dir, cfg, device=device)",
@@ -204,8 +210,9 @@ HUNKS = {
         ('''                   help="multi-host: jax.distributed.initialize before "
                         "building the mesh (auto-detected on TPU pods; "
                         "see TFIDF_DIST_* / JAX_* env vars)")
-''', '''                   help="multi-host mesh serving (not ported yet: "
-                        "raises NotImplementedError)")
+''', '''                   help="multi-process mesh: join a torch.distributed "
+                        "group (NCCL on the card, gloo on the CPU) before "
+                        "building the mesh (see TFIDF_DIST_* env vars)")
 ''' + _DEVICE_ARG, CLI_MESH + "; " + CLI_DEVICE),
         ('''    s.add_argument("--engine-mode", choices=["local", "mesh"])
     s.set_defaults(fn=cmd_ingest)

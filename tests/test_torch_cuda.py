@@ -39,7 +39,7 @@ def _block(rng, rows_cap, width, B, vocab=50_000, hot=0):
     q_weights = np.zeros((B, 4), np.float32)
     for i in range(B):
         ids = [term[rng.integers(rows_cap), 0],
-               term[rng.integers(rows_cap), 1]]
+               term[rng.integers(rows_cap), min(1, width - 1)]]
         if hot and i % 8:
             ids += rng.choice(hot, size=2, replace=False).tolist()
         ids = np.unique(ids)
@@ -111,6 +111,64 @@ def test_kernel_writes_real_doc_slice_bitwise_on_card(cuda, case):
         assert (out[:, :row0] == -7.0).all()
         assert (out[:, row0 + n_rows:] == -7.0).all()
     assert int((plain > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("width", [1, 4, 12, 24, 96])
+def test_kernel_at_mesh_rank_widths_bitwise_on_card(cuda, width):
+    """Exact at the widths a mesh rank's block has (``W/T`` of the mesh
+    buckets: 8/8, 8/2, 24/2, 48/2, 192/2 — phase 9's narrow cases, also
+    run by ``chip_smoke.py`` phase 2): both variants == plain, bit for
+    bit, into a larger tensor at an unaligned row0."""
+    rng = np.random.default_rng(width)
+    imp_t, term_t, slot_of, qc_t = _inputs(cuda, rng, 4096, width, 512,
+                                           u_req=512)
+    plain = E.score_block_plain(imp_t, term_t, slot_of, qc_t, 4000)
+    for a in E.A_BUILD_VARIANTS:
+        out = torch.full((512, 4100), -7.0, device=cuda)
+        E.score_block_kernel(imp_t, term_t, slot_of, qc_t, 4000, a_build=a,
+                             out=out, row0=41)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, 41:4041], plain[:, :4000])
+        assert (out[:, :41] == -7.0).all() and (out[:, 4041:] == -7.0).all()
+    assert int((plain > 0).sum()) > 0
+
+
+def test_mesh_ell_engine_on_card_answers_as_on_cpu(cuda):
+    """Four ranks of a (2, 2) mesh on the card: every eligible non-empty
+    rank block launches the kernel once per chunk, and the hits equal the
+    same mesh engine's on CPU ranks (scores within rel 1e-6, ids
+    identical outside near ties: the card's and the CPU's ``log1p`` may
+    differ by an ulp)."""
+    from tfidf_tpu_torch.engine.engine import Engine
+    from tfidf_tpu_torch.parallel.mesh import make_mesh
+    from tfidf_tpu_torch.utils.config import Config
+    rng = np.random.default_rng(17)
+    texts = {f"d{i}": " ".join(f"w{t}" for t in rng.zipf(
+        1.2, int(rng.integers(5, 120))) % 5000) for i in range(3000)}
+    queries = [" ".join(f"w{t}" for t in rng.zipf(1.2, int(
+        rng.integers(1, 5))) % 5000) for _ in range(200)]
+    got = {}
+    for dev in ("cuda:0", "cpu"):
+        e = Engine(Config(engine_mode="mesh", min_doc_capacity=256,
+                          query_batch=64),
+                   mesh=make_mesh((2, 2), devices=[dev] * 4))
+        for name, text in texts.items():
+            e.ingest_text(name, text)
+        e.commit()
+        E.reset_launches()
+        got[dev] = e.search_batch(queries, k=10)
+        if dev == "cuda:0":
+            # rows_cap >= 256: every non-empty block is eligible; 2 terms
+            # ranks per row, 4 chunks of 64 queries
+            nonempty = int((e.index.snapshot.base.block_live > 0).sum())
+            assert E.launches["v4"] == nonempty * 2 * 4 > 0
+    for g, w in zip(got["cuda:0"], got["cpu"]):
+        np.testing.assert_allclose([h.score for h in g],
+                                   [h.score for h in w], rtol=1e-6)
+        other = {h.name: h.score for h in w}
+        for a, b in zip(g, w):      # a different name only in a near tie
+            assert a.name == b.name or abs(
+                other.get(a.name, w[-1].score) - b.score) <= 1e-6 * b.score
 
 
 @pytest.mark.parametrize("a_build", E.A_BUILD_VARIANTS)

@@ -159,6 +159,8 @@ def test_engine_without_cuda_raises(monkeypatch):
         Engine(Config(**SMALL))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(Config(**SMALL), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(Config(**dict(SMALL, engine_mode="mesh")))
 
 
 @pytest.mark.parametrize("kw,what", [
@@ -168,11 +170,26 @@ def test_engine_without_cuda_raises(monkeypatch):
     (dict(embedding_enabled=True), "dense plane"),
 ])
 def test_unported_modes_raise(kw, what, tmp_path):
-    """The modes still to port raise, naming what is missing. The dense
-    plane is ported: its case, the Config default, ingests, commits and
-    answers ``search_dense_batch`` beside the sparse plane. So are the
-    streaming segments, tiered or not: they ingest, commit, search and
-    delete (budget 0: every search streams its cold segments back)."""
+    """Every mode is ported now (the name is kept): the dense plane, the
+    Config default, ingests, commits and answers ``search_dense_batch``
+    beside the sparse plane; the streaming segments, tiered or not,
+    ingest, commit, search and delete (budget 0: every search streams
+    its cold segments back); the mesh (``engine_mode="mesh"``, a (2, 2)
+    mesh of CPU ranks from ``mesh_shape``) does the same with no dense
+    column."""
+    if what == "engine_mode":
+        e = Engine(Config(**dict(SMALL, mesh_shape=(2, 2), **kw)),
+                   device="cpu")
+        assert e.dense is None
+        assert e.index.mesh.shape == {"docs": 2, "terms": 2}
+        for name, text in CORPUS.items():
+            e.ingest_bytes(name, text.encode())
+        e.commit()
+        assert e.search("fast food")[0].name == "file1.txt"
+        assert e.delete("file1.txt")
+        e.commit()
+        assert all(h.name != "file1.txt" for h in e.search("fast food"))
+        return
     if what in ("index_mode", "tiered segments"):
         e = Engine(Config(**dict(SMALL, index_path=str(tmp_path / "idx"),
                                  tier_hot_budget_mb=0, **kw)),
@@ -199,14 +216,6 @@ def test_unported_modes_raise(kw, what, tmp_path):
         hits = e.search_dense_batch(["fast food", "cat"], k=3)
         assert hits[0][0][0] == "file1.txt" and len(hits[1]) == 3
         assert e.search("fast food")[0].name == "file1.txt"
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        Engine(Config(**dict(SMALL, **kw)), device="cpu")
-    # the durable upload path is ported: ingest_bytes indexes
-    e = Engine(Config(**SMALL), device="cpu")
-    e.ingest_bytes("a.txt", b"fast food")
-    e.commit()
-    assert e.search("food")[0].name == "a.txt"
 
 
 @pytest.mark.parametrize("layout", ["ell", "ell_residual", "coo"])

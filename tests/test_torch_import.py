@@ -50,6 +50,12 @@ CLUSTER_MODULES = ("cluster", "cluster.admission", "cluster.autopilot",
 SEGMENT_MODULES = ("ops.blockmax", "ops.dfdelta", "engine.segments",
                    "engine.tiering")
 
+# the device mesh slice's modules
+MESH_MODULES = ("parallel", "parallel.mesh", "parallel.collectives",
+                "parallel.sharded", "parallel.mesh_index",
+                "parallel.mesh_ell", "parallel.mesh_ell_index",
+                "parallel.mesh_dense")
+
 
 def test_whole_port_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -59,7 +65,8 @@ def test_whole_port_imports_with_jax_blocked():
     assert "BAD []" in r.stdout, r.stdout
     assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
     loaded = set(r.stdout.split("HAS")[1].split())
-    for mod in WORKER_MODULES + CLUSTER_MODULES + SEGMENT_MODULES:
+    for mod in (WORKER_MODULES + CLUSTER_MODULES + SEGMENT_MODULES
+                + MESH_MODULES):
         assert f"tfidf_tpu_torch.{mod}" in loaded, mod
 
 
@@ -119,6 +126,26 @@ def test_segment_modules_import_with_jax_blocked():
                        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[] None False", r.stdout
+
+
+def test_mesh_modules_import_with_jax_blocked():
+    """Each module of the mesh slice imports on its own with ``jax`` and
+    ``tfidf_tpu`` blocked, loads nothing of ``tfidf_tpu``, and importing
+    it starts no process group and touches no CUDA state."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['tfidf_tpu'] = None\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module('tfidf_tpu_torch.' + m)\n"
+            "import torch, torch.distributed as dist\n"
+            "print(sorted(k for k in sys.modules if k == 'tfidf_tpu' "
+            "and sys.modules[k] is not None or k.startswith('tfidf_tpu.')),"
+            " dist.is_initialized(), torch.cuda.is_initialized())\n")
+    r = subprocess.run([sys.executable, "-c", code, *MESH_MODULES],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[] False False", r.stdout
 
 
 def _imported_roots(path):

@@ -77,13 +77,18 @@ def cmd_serve(args) -> int:
     cfg = _load_cfg(args)
     if args.distributed:
         cfg = cfg.replace(distributed=True)
-    if cfg.distributed:
-        # the multi-host mesh is the multi-GPU slice of the port
-        raise NotImplementedError(
-            "tfidf_tpu_torch: distributed (multi-host mesh) serving is not "
-            "ported yet (ROADMAP queue A item 3); use the tfidf_tpu package "
-            "for it")
     device = _device(args)
+    if cfg.distributed:
+        # the multi-process mesh: join the process group (NCCL on the
+        # card, gloo with --device cpu) before the engine builds its mesh
+        # over every process's devices
+        from tfidf_tpu_torch.parallel.mesh import initialize_multihost
+        initialize_multihost(
+            coordinator_address=cfg.dist_coordinator or None,
+            num_processes=cfg.dist_num_processes or None,
+            process_id=(cfg.dist_process_id
+                        if cfg.dist_process_id >= 0 else None),
+            device=device)
     server = None
     if args.embedded_coordinator:
         if cfg.coord_peers and not cfg.coord_data_dir:
@@ -1038,8 +1043,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--embedded-coordinator", action="store_true",
                    help="also run the coordination service in-process")
     s.add_argument("--distributed", action="store_true",
-                   help="multi-host mesh serving (not ported yet: "
-                        "raises NotImplementedError)")
+                   help="multi-process mesh: join a torch.distributed "
+                        "group (NCCL on the card, gloo on the CPU) before "
+                        "building the mesh (see TFIDF_DIST_* env vars)")
     s.add_argument("--device",
                    help="torch device of the engine (cuda, cuda:N, cpu); "
                         "default TFIDF_DEVICE, else cuda")

@@ -71,7 +71,10 @@ def _score_signature(engine: Engine) -> list:
 
 
 def save_checkpoint(engine: Engine, directory: str) -> None:
-    entries, entries_gen = engine.index.live_entries_and_gen()
+    if hasattr(engine.index, "live_entries_and_gen"):
+        entries, entries_gen = engine.index.live_entries_and_gen()
+    else:   # mesh layouts
+        entries, entries_gen = engine.index.live_entries(), None
     n = len(entries)
     offsets = np.zeros(n + 1, np.int64)
     np.cumsum([d.term_ids.shape[0] for d in entries], out=offsets[1:])

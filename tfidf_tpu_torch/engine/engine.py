@@ -31,7 +31,13 @@ host-served: its faults advance health, ladder down on OOM and re-raise;
 nor is a segmented snapshot (no bit-exact host mirror of its
 current-stats weights): its device faults re-raise as in the JAX engine.
 
-Not ported yet: ``engine_mode="mesh"`` raises ``NotImplementedError``.
+``engine_mode="mesh"`` serves from a ``docs x terms`` mesh of ranks
+(:mod:`tfidf_tpu_torch.parallel`): the blocked-ELL base with a COO delta
+(:class:`MeshEllIndex`, the kernel on every rank's blocks), or the COO
+layout (:class:`MeshIndex`) for cosine, Lucene-parity statistics,
+unbounded results and a ``terms`` axis wider than 8. As in the JAX
+package, a mesh engine has no dense plane, no host fallback and no
+listing (``document_names`` and ``search_batch_arrays`` return None).
 """
 
 from __future__ import annotations
@@ -66,12 +72,6 @@ log = get_logger("engine")
 _STAGE_SEQ = itertools.count()
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"tfidf_tpu_torch: {what} is not ported yet (a later slice of the "
-        "PyTorch/CUDA port); use the tfidf_tpu package for it")
-
-
 def _release_frames(e: BaseException) -> None:
     """Free the device tensors a failed attempt's frames still hold (its
     scores) before the OOM ladder retries. The traceback is a reference
@@ -81,13 +81,18 @@ def _release_frames(e: BaseException) -> None:
 
 
 class Engine:
-    def __init__(self, config: Config | None = None, device=None) -> None:
+    def __init__(self, config: Config | None = None, device=None,
+                 mesh=None) -> None:
         """``device``: None runs on CUDA and raises when CUDA is absent;
-        ``"cpu"`` runs every kernel's plain PyTorch version."""
+        ``"cpu"`` runs every kernel's plain PyTorch version.
+
+        ``mesh`` (``engine_mode="mesh"`` only): a built
+        :class:`~tfidf_tpu_torch.parallel.mesh.Mesh` to serve on; without
+        one the engine builds ``Config.mesh_shape`` over every visible
+        CUDA device (``device`` None or ``cuda``), or over ``device``
+        named once per rank."""
         self.config = config or Config()
         c = self.config
-        if c.engine_mode != "local":
-            raise _later(f"engine_mode={c.engine_mode!r}")
         # single-writer mutation guard; RLock because ingest_bytes ->
         # ingest_text nests
         self._write_lock = threading.RLock()
@@ -123,6 +128,9 @@ class Engine:
                 self.native, min_capacity=c.min_vocab_capacity)
         else:
             self.vocab = Vocabulary(min_capacity=c.min_vocab_capacity)
+        if c.engine_mode == "mesh":
+            self._init_mesh(mesh, device)
+            return
         if c.index_mode == "segments":
             # tiered postings: a hot set on the device + an mmap-backed
             # cold tier with block-max skipping. Loud on a cosine model —
@@ -173,6 +181,50 @@ class Engine:
                 get_embedder(c.embedding_model, c.embedding_dim),
                 min_doc_capacity=c.min_doc_capacity,
                 chunk=c.embedding_chunk, device=self.device)
+
+    def _init_mesh(self, mesh, device) -> None:
+        """The mesh branch of the JAX engine, unchanged: the ELL base
+        unless the model needs norms, parity statistics or unbounded
+        results are asked for, or ``terms`` is wider than 8 (the
+        narrowest bucket); the COO layout otherwise. No dense column."""
+        from tfidf_tpu_torch.parallel.mesh import engine_mesh
+        from tfidf_tpu_torch.parallel.mesh_index import (MeshIndex,
+                                                         MeshSearcher)
+        c = self.config
+        if mesh is None:
+            mesh = engine_mesh(c.mesh_shape, device)
+        d_x_t = mesh.D * mesh.T
+        min_chunk = max(1 << 10, c.min_nnz_capacity // max(1, d_x_t))
+        want_ell = (c.mesh_layout == "ell"
+                    and not self.model.needs_norms
+                    and not c.lucene_parity
+                    and not c.unbounded_results
+                    and mesh.T <= 8)
+        kw = dict(query_batch=c.query_batch,
+                  max_query_terms=c.max_query_terms, top_k=c.top_k,
+                  result_order=c.result_order,
+                  pipeline_depth=c.search_pipeline_depth,
+                  pipeline_mode=c.search_pipeline_mode)
+        if want_ell:
+            from tfidf_tpu_torch.parallel.mesh_ell_index import (
+                MeshEllIndex, MeshEllSearcher)
+            self.index = MeshEllIndex(
+                self.model, mesh=mesh, min_doc_cap=c.min_doc_capacity,
+                min_chunk_cap=min_chunk, ell_width_cap=c.ell_width_cap,
+                incremental_stats=c.df_incremental)
+            self.searcher = MeshEllSearcher(
+                self.index, self.analyzer, self.vocab, self.model,
+                kernel_a_build=c.kernel_a_build, **kw)
+        else:
+            self.index = MeshIndex(self.model, mesh=mesh,
+                                   min_doc_cap=c.min_doc_capacity,
+                                   min_chunk_cap=min_chunk)
+            # parity mode scores each row against its own statistics, as
+            # every Java worker does (Worker.java:222-241)
+            self.searcher = MeshSearcher(
+                self.index, self.analyzer, self.vocab, self.model,
+                global_idf=not c.lucene_parity, **kw)
+        self.device = mesh.home
 
     # ---- ingest ----
 
@@ -278,8 +330,11 @@ class Engine:
                 self.dense.delete(name)
             return ok
 
-    def document_names(self) -> list[str]:
-        return self.index.live_names()
+    def document_names(self) -> list[str] | None:
+        """Names of all live indexed documents, or None when the index
+        layout cannot list them (mesh layouts)."""
+        fn = getattr(self.index, "live_names", None)
+        return fn() if fn is not None else None
 
     def remove_document(self, rel: str) -> bool:
         """Delete a document from BOTH the index and the durable docs
@@ -477,10 +532,15 @@ class Engine:
     def search_batch_arrays(self, queries: list[str],
                             k: int | None = None):
         """Exact top-k as raw result arrays ``(vals, ids, kk, names)``
-        (see ``Searcher.search_arrays``), through the compute guard."""
+        (see ``Searcher.search_arrays``), through the compute guard; None
+        when the searcher has no arrays path (mesh layouts) and the
+        caller must assemble hits through :meth:`search_batch`."""
+        arrays = getattr(self.searcher, "search_arrays", None)
+        if arrays is None:
+            return None
         return self._run_compute(
             queries,
-            lambda qs: self.searcher.search_arrays(qs, k=k),
+            lambda qs: arrays(qs, k=k),
             lambda qs: self._fallback.search_arrays(qs, k=k),
             merge=self._merge_arrays)
 
