@@ -58,7 +58,7 @@ beside it. Phases (any failure fails the run):
    fallback), a clean call heals it, ``dense:oom`` merges through the
    ladder, ``dense:poison`` answers with empty hit lists as the JAX
    package does;
-6. the durable text path: 20,000 generated ASCII documents through
+6. the durable text path: 10,000 generated ASCII documents through
    ``stage_bytes`` -> group fsync -> ``publish_staged`` (native tokenizer
    for every one, dense plane off), then ``build_from_directory`` with
    the dense plane on in a fresh engine (the Python analyzer; every
@@ -71,9 +71,9 @@ beside it. Phases (any failure fails the run):
    ``serve`` workers restoring their shards at boot, a ``router``), the
    default ``Config`` with ``replication_factor=1`` and coordination
    sessions of 30 s (``FLEET_ENV``). From 64 client
-   threads, one query a ``POST /leader/start``: 2,048 sparse, 1,024
-   dense and 1,024 hybrid (rrf) queries through the leader, 1,024 sparse
-   through the router; then 1,000 new documents through
+   threads, one query a ``POST /leader/start``: 1,024 sparse, 512
+   dense and 512 hybrid (rrf) queries through the leader, 512 sparse
+   through the router; then 500 new documents through
    ``/leader/upload-batch``, each read back. Sparse replies against a
    scipy f64 oracle scoring each shard with its own statistics, dense
    against a numpy f64 brute force, hybrid against ``fusion.fuse`` of the
@@ -129,12 +129,26 @@ beside it. Phases (any failure fails the run):
    one-process NCCL group (``initialize_multihost``, world size 1, four
    ranks): a small mesh-ELL engine's hits equal the in-process mesh's.
    Phase 2's cases include the mesh's rank widths 1, 4, 12, 24 and 96.
+10. the bench (last, after the fleet): ``tfidf_tpu_torch.bench``'s own
+   functions for the configs no earlier phase covers: config 1 (18k text
+   docs, batch 4096: outside the kernel's envelope, so its launches come
+   from the next two) and config 5 (200k docs over a 5M-term vocabulary)
+   at the bench's sizes, the realistic text at 10,000 textgen docs (the
+   bench's 100,000; the binary ones refused), with the ELL launches
+   counted from 0 over the three; one config-5 batch through every
+   eligible block, v3 and v4 == plain bitwise, with the kernel / plain /
+   ``torch.sparse.mm`` / bound ms; then ``bench_cluster`` and
+   ``bench_cluster_gpu`` as ``python -m tfidf_tpu_torch`` processes on
+   the card at 2,000 docs (``BENCH_*`` sets each cut). The artifact goes through ``_emit_validated``
+   into ``--work`` and must re-parse with every ``parity_checked`` true
+   and no kernel build inside a timed window.
 
 After every phase with nothing armed, each engine's compute health must
 be healthy with no new fault and no fallback-served request.
 
 Then one ``{"kernels": [...]}`` line (per kernel: launches on its path,
-``launches_mesh`` on phase 9a's, max abs error against the plain version,
+``launches_mesh`` on phase 9a's, ``launches_bench`` over phase 10's
+in-process configs, max abs error against the plain version,
 kernel / plain / library ms per main-path batch and the bound), and as the last line
 ``{"ok": true, "device": {...}}``. The full record of the run goes to
 ``--out``/chip_smoke.json (default ``build/chip_smoke/``).
@@ -153,6 +167,9 @@ import time
 
 import numpy as np
 import torch
+
+# bench.py's corpus and query synthesis, as the port's bench draws it
+from tfidf_tpu_torch.bench import make_doc_arrays, make_queries
 
 SEED = 0
 TOP_K = 10
@@ -493,35 +510,6 @@ def topk_cases(seed: int) -> dict:
 # --------------------------------------------------------------------------
 # phase 3: the main path at the north-star size
 # --------------------------------------------------------------------------
-
-def make_doc_arrays(rng, n_docs: int, vocab: int, avg_len: int):
-    """Zipf(1.25) corpus as per-doc sorted (ids, tfs) slices: (offsets
-    [n+1], ids [nnz], tfs [nnz], lengths [n]) — the synthesis of
-    bench.py's north-star config, with one combined sort key."""
-    lengths = np.clip(rng.poisson(avg_len, n_docs), 5, None).astype(np.int64)
-    total = int(lengths.sum())
-    terms = (rng.zipf(1.25, size=total) % vocab).astype(np.int64)
-    doc_of = np.repeat(np.arange(n_docs, dtype=np.int64), lengths)
-    key = doc_of * vocab + terms
-    key.sort()
-    first = np.ones(total, bool)
-    first[1:] = key[1:] != key[:-1]
-    idx = np.flatnonzero(first)
-    counts = np.diff(np.append(idx, total))
-    ud, ut = key[idx] // vocab, key[idx] % vocab
-    offsets = np.searchsorted(ud, np.arange(n_docs + 1))
-    return (offsets, ut.astype(np.int32), counts.astype(np.float32),
-            lengths.astype(np.float32))
-
-
-def make_queries(rng, vocab: int, n: int) -> list[str]:
-    out = []
-    for _ in range(n):
-        k = int(rng.integers(2, 5))
-        ids = rng.zipf(1.25, size=k) % vocab
-        out.append(" ".join(f"t{w}" for w in ids))
-    return out
-
 
 def embed_corpus(corpus, embedder, vocab: int) -> np.ndarray:
     """f32 ``[n_docs, dim]`` rows of the synthetic corpus, the numpy
@@ -1683,6 +1671,10 @@ def make_texts(rng, n_docs: int, n_words: int = 30_000,
     return out
 
 
+DURABLE_DOCS = 10_000          # phase 6's documents (cut from 20,000 to
+                               # make room for phase 10 in the run's time)
+
+
 def durable_phase(seed: int, work: str) -> dict:
     """Phase 6: the durable upload path with the native tokenizer, then
     a rebuild of the same documents dir through the Python analyzer."""
@@ -1692,7 +1684,7 @@ def durable_phase(seed: int, work: str) -> dict:
     from tfidf_tpu_torch.utils import storage
     from tfidf_tpu_torch.utils.config import Config
     rng = np.random.default_rng(seed + 6)
-    n_docs = 20_000
+    n_docs = DURABLE_DOCS
     t0 = time.perf_counter()
     texts = make_texts(rng, n_docs)
     names = [f"doc{i:05d}.txt" for i in range(n_docs)]
@@ -2779,13 +2771,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SMI = "nvidia-smi"
 FLEET_DEVICE = "cuda"      # every serve process's --device
 FLEET_CLIENTS = 64         # concurrent client threads, one query a POST
-# the sparse window and the uploads were 4,096 queries and 2,000 docs
-# until the mesh phase joined the run: halved to keep all nine phases
-# well inside the run's time limit
-FLEET_SPARSE = 2048        # sparse queries through the leader
-FLEET_STAGED = 1024        # dense, hybrid (rrf), router queries, and the
+# the windows and the uploads were 4,096 / 2,048 queries and 2,000 docs
+# until the mesh phase joined the run, then 2,048 / 1,024 and 1,000 until
+# the bench phase did: halved each time to keep every phase inside the
+# run's time limit
+FLEET_SPARSE = 1024        # sparse queries through the leader
+FLEET_STAGED = 512         # dense, hybrid (rrf), router queries, and the
                            # replies of each mode held to the oracles
-FLEET_UPLOADS = 1000       # new documents through /leader/upload-batch
+FLEET_UPLOADS = 500        # new documents through /leader/upload-batch
 FLEET_UPLOAD_CHUNK = 500   # documents per upload-batch request (the CLI's)
 FLEET_BOOT_S = 300.0       # deadline for the fleet to serve the corpus
 # the deployment: the default Config with the reference's single-copy
@@ -3460,6 +3453,121 @@ def fleet_phase(data, shards, seed: int, work: str, out_dir: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 10: the bench's configs that no earlier phase covers
+# --------------------------------------------------------------------------
+
+BENCH_C1_CPU_BATCH = 64        # config 1's CPU baselines' batch (the
+                               # bench's 512: its numpy loop took 42 s)
+BENCH_RT_DOCS = 10_000         # the realistic text's corpus (the bench's
+                               # 100,000: 124 s of the phase)
+BENCH_CLUSTER_DOCS = 2_000     # both cluster configs' corpus (the bench's
+                               # 100,000; phase 7 has the fleet at 1M docs)
+BENCH_CLUSTER_SHARE = 1_900    # bench_cluster_gpu's first upload (95%)
+BENCH_CLUSTER_QUERIES = 256    # queries a sweep point and a warm round
+BENCH_CLUSTER_SWEEP = (512, 256)   # client sweep (the bench's 1024/768/512)
+
+
+def _parity_flags(obj) -> list:
+    """Every ``parity_checked`` value in a nested result."""
+    if isinstance(obj, dict):
+        return ([v for k, v in obj.items() if k == "parity_checked"]
+                + [f for v in obj.values() for f in _parity_flags(v)])
+    if isinstance(obj, list):
+        return [f for v in obj for f in _parity_flags(v)]
+    return []
+
+
+def bench_phase(seed: int, work: str) -> dict:
+    """Phase 10: ``tfidf_tpu_torch.bench``'s own functions on the card for
+    the configs no earlier phase covers: config 1 and config 5 at the
+    bench's sizes, the realistic text, ``bench_cluster`` and
+    ``bench_cluster_gpu`` at a cut depth. The ELL launches are counted
+    from 0 over the three in-process configs; then one config-5 batch
+    through every eligible block, v3 and v4 == plain bitwise, with the
+    kernel / plain / ``torch.sparse.mm`` / bound ms. The artifact goes
+    through ``_emit_validated`` into ``work`` and must re-parse with every
+    ``parity_checked`` true and no kernel build in a timed window."""
+    import contextlib
+    import io
+
+    from tfidf_tpu_torch import bench as B
+    from tfidf_tpu_torch.ops import ell as E
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 10)
+    res, wall = {}, {}
+
+    def run(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        wall[name] = time.perf_counter() - t0
+        log(f"[bench] {name}: {wall[name]:.1f}s {out}")
+        return out
+
+    keep = {}
+    E.reset_launches()
+    c1 = run("config1_18k_fulltext", B.bench_config1, rng,
+             cpu_batch=BENCH_C1_CPU_BATCH)
+    c5 = run("config5_5m_vocab", B.bench_5m_vocab, rng, keep=keep)
+    rt = run("realistic_text", B.bench_realistic, rng,
+             n_docs=BENCH_RT_DOCS)
+    launches = dict(E.launches)
+    log(f"[bench] ELL launches over configs 1, 5 and the realistic text: "
+        f"{launches}")
+    if launches["v4"] == 0 or launches["v3"] != 0:
+        raise SystemExit(f"bench: launches {launches}")
+    # config 5's shape: the kernel's first run over a 5M-term vocabulary
+    engine = keep.pop("engine")
+    qb, _ = engine.searcher._vectorize(keep["queries"][:B.C5_BATCH],
+                                       B.C5_BATCH)
+    res["c5_kernel"] = main_path_kernel_times(engine, qb)
+    res["c5_kernel"]["vocab_cap"] = int(engine.index.snapshot.df.shape[0])
+    log(f"[bench] config 5 batch, v3 == v4 == plain bitwise over "
+        f"{res['c5_kernel']['blocks']} blocks: {res['c5_kernel']}")
+    del engine, qb, keep
+    torch.cuda.empty_cache()
+    c2 = run("config2_cluster", B.bench_cluster, rng,
+             n_docs=BENCH_CLUSTER_DOCS, n_queries=BENCH_CLUSTER_QUERIES)
+    c2g = run("config2_gpu_worker", B.bench_cluster_gpu, rng,
+              n_docs=BENCH_CLUSTER_DOCS, gpu_share=BENCH_CLUSTER_SHARE,
+              n_queries=BENCH_CLUSTER_QUERIES, sweep=BENCH_CLUSTER_SWEEP,
+              clients=BENCH_CLUSTER_SWEEP[0])
+
+    result = {
+        "metric": "config1_18k_fulltext_qps", "value": round(c1["qps"], 2),
+        "unit": "queries/sec",
+        "vs_baseline": round(c1["qps"] / c1["best_cpu_qps"], 2),
+        "extra": {"config1_18k_fulltext": c1, "config5_5m_vocab": c5,
+                  "realistic_text": rt, "config2_cluster": c2,
+                  "config2_gpu_worker": c2g, "top_k": B.TOP_K},
+        "device": B.card_info(), "lexicon": B.lexicon_info(),
+        "wall_s": wall}
+    path = os.path.join(work, "BENCH_DETAIL.json")
+    os.environ["BENCH_OUT"] = path
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            B._emit_validated(result, {"config1_qps": c1["qps"],
+                                       "c5_vocab_qps": c5["qps"],
+                                       "realistic_qps": rt["qps"],
+                                       "cluster_qps": c2["qps"],
+                                       "c2g_qps": c2g["qps"]})
+    finally:
+        del os.environ["BENCH_OUT"]
+    log(f"[bench] headline: {out.getvalue().strip()}")
+    with open(path) as f:
+        art = json.load(f)
+    flags = _parity_flags(art)
+    builds = art["kernel_builds_during_measurement"]
+    if len(flags) != 2 or not all(f is True for f in flags) or builds:
+        raise SystemExit(f"bench artifact: parity_checked {flags}, kernel "
+                         f"builds in timed windows {builds}")
+    res.update(artifact=art, launches=launches, headline=out.getvalue(),
+               seconds=time.perf_counter() - t_phase)
+    log(f"[bench] phase 10 took {res['seconds']:.1f}s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=SEED)
@@ -3534,6 +3642,10 @@ def main() -> int:
         mesh = mesh_phases(data, args.seed)
         # ---- phase 7: the fleet, one process per node ----
         fleet = fleet_phase(data, shards, args.seed, args.work, args.out)
+        del data, shards
+        torch.cuda.empty_cache()
+        # ---- phase 10: the bench's configs ----
+        bench = bench_phase(args.seed, args.work)
     finally:
         shutil.rmtree(args.work, ignore_errors=True)
 
@@ -3542,8 +3654,10 @@ def main() -> int:
         {"name": f"ell_score_{a}", "route": "cuda", "source": SOURCE,
          "replaces": KERNELS[a], "launches": main_res["launches"][a],
          "launches_mesh": mesh["ell"]["launches"][a],
+         "launches_bench": bench["launches"][a],
          "max_abs_err": max(cases["max_abs_err"], kt["max_abs_err"],
-                            mesh["ell"]["kernel"]["max_abs_err"]),
+                            mesh["ell"]["kernel"]["max_abs_err"],
+                            bench["c5_kernel"]["max_abs_err"]),
          "bitwise": True,   # every case and block was held to equality
          "ms": kt[f"{a}_ms"], "kernel_ms": kt[f"{a}_ms"],
          "plain_ms": kt["plain_ms"],
@@ -3557,7 +3671,7 @@ def main() -> int:
                    "main": main_res, "dense": dense, "text": text,
                    "worker": worker,
                    "durable": durable, "streaming": streaming,
-                   "mesh": mesh, "fleet": fleet,
+                   "mesh": mesh, "fleet": fleet, "bench": bench,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

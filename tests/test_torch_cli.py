@@ -288,6 +288,25 @@ def test_serve_without_device_needs_cuda(tmp_path):
 
 
 @pytest.mark.timeout(120)
+def test_bench_without_cuda_exits_with_the_cuda_message(tmp_path):
+    """``bench`` has no CPU mode: without a card it exits non-zero with
+    the CUDA message before it draws a corpus or starts a node, writes no
+    artifact, and never reaches the blocked ``jax``."""
+    env = _blocked_env(tmp_path)
+    env["CUDA_VISIBLE_DEVICES"] = ""        # no card, even on a GPU host
+    env["TFIDF_DEVICE"] = "cpu"             # not a way around the card
+    env["BENCH_OUT"] = str(tmp_path / "BENCH_DETAIL.json")
+    r = subprocess.run(
+        [sys.executable, "-m", "tfidf_tpu_torch", "bench"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=90)
+    assert r.returncode == 2, r.stderr
+    assert "CUDA is not available" in r.stderr
+    assert "blocked in this test" not in r.stderr
+    assert r.stdout == ""
+    assert not (tmp_path / "BENCH_DETAIL.json").exists()
+
+
+@pytest.mark.timeout(120)
 def test_ingest_and_search_match_the_jax_cli(tmp_path, capsys):
     ckpts = {}
     for tag, main, extra in (("port", port_main, ["--device", "cpu"]),

@@ -30,8 +30,9 @@ _DEVICE_ARG = '''    s.add_argument("--device",
 '''
 
 CLI_DEVICE = "the CLI's device choice (--device / TFIDF_DEVICE, default cuda)"
-CLI_BENCH = ("`bench` runs the TPU bench.py; the port's bench is ROADMAP "
-             "queue A item 2")
+CLI_BENCH = ("`bench` runs the port's own bench (tfidf_tpu_torch/bench.py) "
+             "on the card, not the root bench.py; without CUDA it exits "
+             "with the CUDA message")
 CLI_SIGTERM = ("serve/router/coordinator park in bounded waits: a SIGTERM "
                "handled on another thread does not interrupt a blocking "
                "Event.wait, and the process never stopped (ROADMAP queue C)")
@@ -224,9 +225,9 @@ HUNKS = {
 ''', '''    s.add_argument("--engine-mode", choices=["local", "mesh"])
 ''' + _DEVICE_ARG + '''    s.set_defaults(fn=cmd_search)
 ''', CLI_DEVICE),
-        ('''    s = sub.add_parser("bench", help="run the TPU benchmark")
-    s.set_defaults(fn=cmd_bench)
-''', "", CLI_BENCH),
+        ('s = sub.add_parser("bench", help="run the TPU benchmark")',
+         's = sub.add_parser("bench", help="run the benchmark on the CUDA '
+         'card")', CLI_BENCH),
         ("    _apply_platform_override()\n", "",
          "no JAX platform to pin; " + CLI_DEVICE),
         ("    stop.wait()   # the main thread parks",
@@ -270,7 +271,8 @@ COPIES = sorted(
         "resilience.py", "router.py", "wal.py", "wire.py")]
     + ["cli.py", "__main__.py"]
     + ["utils/" + n for n in ("config.py", "faults.py", "logging.py",
-                              "metrics.py", "storage.py", "tracing.py")]
+                              "metrics.py", "storage.py", "textgen.py",
+                              "tracing.py")]
     + ["models/base.py", "models/bm25.py", "models/tfidf.py",
        "ops/analyzer.py", "ops/blockmax.py", "engine/embedder.py",
        "engine/pipeline.py"])

@@ -56,6 +56,9 @@ MESH_MODULES = ("parallel", "parallel.mesh", "parallel.collectives",
                 "parallel.mesh_ell", "parallel.mesh_ell_index",
                 "parallel.mesh_dense")
 
+# the bench slice's modules
+BENCH_MODULES = ("bench", "utils.textgen")
+
 
 def test_whole_port_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -66,7 +69,7 @@ def test_whole_port_imports_with_jax_blocked():
     assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
     loaded = set(r.stdout.split("HAS")[1].split())
     for mod in (WORKER_MODULES + CLUSTER_MODULES + SEGMENT_MODULES
-                + MESH_MODULES):
+                + MESH_MODULES + BENCH_MODULES):
         assert f"tfidf_tpu_torch.{mod}" in loaded, mod
 
 
@@ -146,6 +149,28 @@ def test_mesh_modules_import_with_jax_blocked():
                        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[] False False", r.stdout
+
+
+def test_bench_modules_import_with_jax_blocked():
+    """The bench and the corpus generator import on their own with
+    ``jax`` and ``tfidf_tpu`` blocked, load nothing of ``tfidf_tpu``, and
+    importing them builds no kernel, starts no process and touches no
+    CUDA state."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['tfidf_tpu'] = None\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module('tfidf_tpu_torch.' + m)\n"
+            "import torch\n"
+            "from tfidf_tpu_torch import kernels\n"
+            "print(sorted(k for k in sys.modules if k == 'tfidf_tpu' "
+            "and sys.modules[k] is not None or k.startswith('tfidf_tpu.')),"
+            " kernels.build_count(), torch.cuda.is_initialized())\n")
+    r = subprocess.run([sys.executable, "-c", code, *BENCH_MODULES],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[] 0 False", r.stdout
 
 
 def _imported_roots(path):

@@ -18,6 +18,7 @@ The reference ships one Spring Boot fat jar that every node runs
     trace        client: fetch + render a distributed request trace
     autopilot    client: SLO-autopilot state, decision audit, kill switch
     faults       chaos tooling: list registered fault points
+    bench        BASELINE's configs on the CUDA card (tfidf_tpu_torch.bench)
 
 Config resolution (lowest to highest): dataclass defaults, --config JSON
 file, TFIDF_* environment variables, explicit flags — mirroring the
@@ -26,8 +27,9 @@ reference's application.properties + env override scheme (SURVEY.md §5.6).
 The commands that hold an engine (``serve``, ``ingest``, ``search``) run
 it on the device that ``--device`` names, else ``TFIDF_DEVICE``, else the
 CUDA card; without CUDA and without a named device they exit with the
-CUDA message (:func:`tfidf_tpu_torch.device.resolve_device`). The other
-commands speak HTTP or read files and touch no device.
+CUDA message (:func:`tfidf_tpu_torch.device.resolve_device`). ``bench``
+always runs on the card and exits with the CUDA message without one. The
+other commands speak HTTP or read files and touch no device.
 """
 
 from __future__ import annotations
@@ -1021,6 +1023,20 @@ def cmd_scrub(args) -> int:
     return 1 if ckpt_bad or store_bad else 0
 
 
+def cmd_bench(args) -> int:
+    # the port's own bench (tfidf_tpu_torch/bench.py): BASELINE's configs
+    # on the card, each gated by its oracle
+    from tfidf_tpu_torch import bench
+    from tfidf_tpu_torch.device import resolve_device
+    try:
+        resolve_device(None)   # the card; never a CPU number
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    bench.main()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tfidf_tpu_torch",
@@ -1167,6 +1183,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--json", action="store_true",
                    help="raw JSON instead of the rendered table")
     s.set_defaults(fn=cmd_autopilot)
+
+    s = sub.add_parser("bench", help="run the benchmark on the CUDA card")
+    s.set_defaults(fn=cmd_bench)
 
     s = sub.add_parser("scrub",
                        help="storage-integrity verification: checkpoint "

@@ -38,6 +38,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time or 0.0 when reused, "log": nvcc output}
 build_info: dict[str, dict] = {}
+_builds = [0]   # nvcc runs started by this process
 
 
 class KernelBuildError(RuntimeError):
@@ -51,6 +52,12 @@ class KernelLaunchError(RuntimeError):
 def build_dir() -> str:
     return os.environ.get("TFIDF_TORCH_BUILD_DIR") or os.path.join(
         os.path.dirname(_PKG_DIR), "build", "kernels")
+
+
+def build_count() -> int:
+    """How many ``nvcc`` builds this process has started (a timed window
+    that sees the count move had a compile inside it)."""
+    return _builds[0]
 
 
 def _nvcc() -> str:
@@ -91,6 +98,7 @@ def build_all(names=None) -> dict[str, dict]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
+        _builds[0] += 1
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
