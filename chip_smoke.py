@@ -142,15 +142,24 @@ beside it. Phases (any failure fails the run):
    the card at 2,000 docs (``BENCH_*`` sets each cut). The artifact goes through ``_emit_validated``
    into ``--work`` and must re-parse with every ``parity_checked`` true
    and no kernel build inside a timed window.
+11. the root ``bench.py``'s other modes (last): each of
+   ``tfidf_tpu_torch.bench_modes``' mains (compute, kernel, hybrid, tier,
+   overload, routers, replay) at a cut depth (``MODE_CUTS``), every gate
+   asserted in the mode's own function and every artifact through
+   ``_emit_validated`` into ``--work``; the fleet modes' serving nodes on
+   the card and, by ``nvidia-smi``'s count, nothing else of theirs; the
+   ELL launches counted over the modes (this process's and the fleet
+   workers').
 
 After every phase with nothing armed, each engine's compute health must
 be healthy with no new fault and no fallback-served request.
 
 Then one ``{"kernels": [...]}`` line (per kernel: launches on its path,
 ``launches_mesh`` on phase 9a's, ``launches_bench`` over phase 10's
-in-process configs, max abs error against the plain version,
-kernel / plain / library ms per main-path batch and the bound), and as the last line
-``{"ok": true, "device": {...}}``. The full record of the run goes to
+in-process configs, ``launches_modes`` over phase 11's modes, max abs
+error against the plain version, kernel / plain / library ms per
+main-path batch and the bound), and as the last line ``{"ok": true,
+"device": {...}}``. The full record of the run goes to
 ``--out``/chip_smoke.json (default ``build/chip_smoke/``).
 """
 
@@ -3568,6 +3577,115 @@ def bench_phase(seed: int, work: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 11: the root bench.py's other modes
+# --------------------------------------------------------------------------
+
+# each mode's main at a cut depth (the bench's sizes in comments); every
+# gate of the mode holds inside its own function
+MODE_CUTS = {
+    "compute": dict(n_docs=5_000),             # 50,000
+    "kernel": dict(seg_sweep=(4_000, 8_000, 16_000),   # 12.5k-50k docs,
+                   mesh_sweep=(4_000, 8_000, 16_000),  # 500-doc batches,
+                   batch_docs=300, commits=4),         # 8 commits
+    "hybrid": dict(n_docs=2_000),              # 20,000
+    "tier": dict(n_docs=120_000, phase_docs=5_000,     # 30M docs in 1M
+                 budget_mb=1),                          # phases, 256 MB
+    "overload": dict(n_docs=1_000, phase_s=1.0, warm_s=0.5),  # 20,000,
+                                                               # 12 s / 6 s
+    "routers": dict(n_docs=1_000, warm_s=0.5, phase_s=1.0),   # 4,000, 5 s
+                                                               # / 10 s
+    "replay": dict(n_docs=1_000, warm_s=0.5, capture_s=1.0),  # 8,000, 5 s
+                                                               # / 12 s
+}
+MODE_ARTIFACTS = {"compute": "BENCH_r13.json", "kernel": "BENCH_r09.json",
+                  "hybrid": "BENCH_r11.json", "tier": "BENCH_r12.json",
+                  "overload": "OVERLOAD.json", "routers": "BENCH_r07.json",
+                  "replay": "BENCH_r10.json"}
+
+
+def _fleet_runs(mode: str, art: dict) -> list:
+    """The fleet results of a fleet mode's artifact."""
+    if mode == "overload":
+        return [art["extra"]["autopilot"], art["extra"]["static_hand_tuned"]]
+    return [art["extra"]]
+
+
+def modes_phase(work: str, device=None, cuts: dict = MODE_CUTS) -> dict:
+    """Phase 11: each of the root ``bench.py``'s other modes through its
+    own ``tfidf_tpu_torch.bench_modes`` main at a cut depth, on the card;
+    every gate asserted in the mode's function, every artifact through
+    ``_emit_validated`` into ``work``, re-read: no kernel build inside a
+    timed window, the kernel's variants bitwise the plain version, the
+    fleet modes' card held by their serving nodes only (this process
+    besides). The ELL launches are counted over the modes that launch the
+    kernel: in this process (kernel, hybrid and the sweeps' engines) and
+    in the fleet modes' workers (their ``/api/metrics``)."""
+    import contextlib
+    import gc
+    import io
+
+    from tfidf_tpu_torch import bench_modes as BM
+    from tfidf_tpu_torch.ops import ell as E
+    t_phase = time.perf_counter()
+    res = {"wall_s": {}, "headline": {}}
+    E.reset_launches()
+    workers = 0
+    for mode, kw in cuts.items():
+        path = os.path.join(work, MODE_ARTIFACTS[mode])
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        # at this cut a tier phase ingests in a fraction of a second, so
+        # one full collection of this process's heap (gigabytes of earlier
+        # phases' objects) inside the last phase would read as ingest
+        # decay: the cyclic collector is off while the tier mode runs
+        if mode == "tier":
+            gc.disable()
+        os.environ["BENCH_OUT"] = path
+        try:
+            with contextlib.redirect_stdout(out):
+                BM.MAINS[mode](device=device, **kw)
+        finally:
+            gc.enable()
+            del os.environ["BENCH_OUT"]
+        res["wall_s"][mode] = time.perf_counter() - t0
+        with open(path) as f:
+            art = json.load(f)
+        res[mode] = art
+        res["headline"][mode] = out.getvalue().strip()
+        if art["kernel_builds_during_measurement"]:
+            raise SystemExit(f"modes: {mode}: kernel builds inside timed "
+                             f"windows {art}")
+        if mode == "kernel":
+            for case in art["extra"]["kernel_scoring"]["cases"]:
+                if not (case["v3_v4_bitwise_equal"]
+                        and case["v4_plain_bitwise_equal"]):
+                    raise SystemExit(f"modes: kernel case {case}")
+        if mode in ("overload", "routers", "replay"):
+            # each worker's launches were asserted in the mode; the card
+            # count is None only off the card
+            for run in _fleet_runs(mode, art):
+                if device is None and run["card_processes"] is None:
+                    raise SystemExit(f"modes: {mode}: no card process "
+                                     f"count")
+                workers += sum(run["worker_kernel_launches"])
+        log(f"[modes] {mode}: {res['wall_s'][mode]:.1f}s "
+            f"{res['headline'][mode]}")
+    res["launches"] = {"v3": E.launches["v3"],
+                       "v4": E.launches["v4"] + workers}
+    res["launches_workers"] = workers
+    res["max_abs_err"] = max(
+        c["max_abs_delta_vs_plain"]
+        for c in res["kernel"]["extra"]["kernel_scoring"]["cases"])
+    log(f"[modes] ELL launches over the modes: {res['launches']} (of them "
+        f"the fleet workers' v4 {workers})")
+    if device is None and min(res["launches"].values()) == 0:
+        raise SystemExit(f"modes: launches {res['launches']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[modes] phase 11 took {res['seconds']:.1f}s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=SEED)
@@ -3646,6 +3764,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # ---- phase 10: the bench's configs ----
         bench = bench_phase(args.seed, args.work)
+        torch.cuda.empty_cache()
+        # ---- phase 11: the bench's other modes ----
+        modes = modes_phase(args.work)
     finally:
         shutil.rmtree(args.work, ignore_errors=True)
 
@@ -3655,9 +3776,11 @@ def main() -> int:
          "replaces": KERNELS[a], "launches": main_res["launches"][a],
          "launches_mesh": mesh["ell"]["launches"][a],
          "launches_bench": bench["launches"][a],
+         "launches_modes": modes["launches"][a],
          "max_abs_err": max(cases["max_abs_err"], kt["max_abs_err"],
                             mesh["ell"]["kernel"]["max_abs_err"],
-                            bench["c5_kernel"]["max_abs_err"]),
+                            bench["c5_kernel"]["max_abs_err"],
+                            modes["max_abs_err"]),
          "bitwise": True,   # every case and block was held to equality
          "ms": kt[f"{a}_ms"], "kernel_ms": kt[f"{a}_ms"],
          "plain_ms": kt["plain_ms"],
@@ -3672,6 +3795,7 @@ def main() -> int:
                    "worker": worker,
                    "durable": durable, "streaming": streaming,
                    "mesh": mesh, "fleet": fleet, "bench": bench,
+                   "modes": modes,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -33,6 +33,16 @@ CLI_DEVICE = "the CLI's device choice (--device / TFIDF_DEVICE, default cuda)"
 CLI_BENCH = ("`bench` runs the port's own bench (tfidf_tpu_torch/bench.py) "
              "on the card, not the root bench.py; without CUDA it exits "
              "with the CUDA message")
+CLI_BENCH_MODES = ("`bench --<mode>` runs one of the root bench.py's other "
+                   "modes through the port's tfidf_tpu_torch/bench_modes.py "
+                   "(the reference's subcommand takes no flag)")
+_BENCH_MODES = '''    g = s.add_mutually_exclusive_group()
+    for mode in ("overload", "replay", "routers", "kernel", "hybrid",
+                 "tier", "compute"):
+        g.add_argument(f"--{mode}", dest="mode", action="store_const",
+                       const=mode, help=f"the root bench.py's --{mode} "
+                       "mode (tfidf_tpu_torch/bench_modes.py)")
+'''
 CLI_SIGTERM = ("serve/router/coordinator park in bounded waits: a SIGTERM "
                "handled on another thread does not interrupt a blocking "
                "Event.wait, and the process never stopped (ROADMAP queue C)")
@@ -225,9 +235,9 @@ HUNKS = {
 ''', '''    s.add_argument("--engine-mode", choices=["local", "mesh"])
 ''' + _DEVICE_ARG + '''    s.set_defaults(fn=cmd_search)
 ''', CLI_DEVICE),
-        ('s = sub.add_parser("bench", help="run the TPU benchmark")',
+        ('s = sub.add_parser("bench", help="run the TPU benchmark")\n',
          's = sub.add_parser("bench", help="run the benchmark on the CUDA '
-         'card")', CLI_BENCH),
+         'card")\n' + _BENCH_MODES, CLI_BENCH + "; " + CLI_BENCH_MODES),
         ("    _apply_platform_override()\n", "",
          "no JAX platform to pin; " + CLI_DEVICE),
         ("    stop.wait()   # the main thread parks",

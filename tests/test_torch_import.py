@@ -57,7 +57,7 @@ MESH_MODULES = ("parallel", "parallel.mesh", "parallel.collectives",
                 "parallel.mesh_dense")
 
 # the bench slice's modules
-BENCH_MODULES = ("bench", "utils.textgen")
+BENCH_MODULES = ("bench", "bench_modes", "utils.textgen")
 
 
 def test_whole_port_imports_with_jax_blocked():
@@ -152,13 +152,16 @@ def test_mesh_modules_import_with_jax_blocked():
 
 
 def test_bench_modules_import_with_jax_blocked():
-    """The bench and the corpus generator import on their own with
-    ``jax`` and ``tfidf_tpu`` blocked, load nothing of ``tfidf_tpu``, and
+    """The bench, its modes and the corpus generator import on their own
+    with ``jax``, ``tfidf_tpu``, the root ``bench.py`` and
+    ``kernel_parity.py`` blocked, load nothing of ``tfidf_tpu``, and
     importing them builds no kernel, starts no process and touches no
     CUDA state."""
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['tfidf_tpu'] = None\n"
+            "sys.modules['bench'] = None\n"
+            "sys.modules['kernel_parity'] = None\n"
             "for m in sys.argv[1:]:\n"
             "    importlib.import_module('tfidf_tpu_torch.' + m)\n"
             "import torch\n"
@@ -193,7 +196,9 @@ def test_port_and_chip_smoke_never_import_jax_or_the_reference():
     for path in files:
         for mod in _imported_roots(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "tfidf_tpu"), (path, mod)
+            # nor the root bench.py or kernel_parity.py (which import jax)
+            assert top not in ("jax", "jaxlib", "tfidf_tpu", "bench",
+                               "kernel_parity"), (path, mod)
 
 
 def test_package_init_is_light():

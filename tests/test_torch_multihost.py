@@ -21,6 +21,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -43,7 +44,8 @@ QUERIES = ("fox", "brown dog", "lorem ipsum", "red dawn", "meadow",
 APPEND = ("k.txt", "zebra fox dawn")
 SMALL = dict(min_doc_capacity=8, min_nnz_capacity=256,
              min_vocab_capacity=64, query_batch=4, max_query_terms=8)
-PROC_TIMEOUT_S = 60
+PROC_TIMEOUT_S = 120
+JOINED = "MP_JOINED"   # a process prints it once its group has formed
 
 
 def results(engine):
@@ -60,9 +62,16 @@ def _free_port() -> int:
 def _run(code_args, n, timeout=PROC_TIMEOUT_S, attempts=3):
     """Start ``n`` processes of this file's program (``code_args(i,
     port)``: process i's arguments around a free port from the OS) and
-    collect their output; each has its own deadline and is killed past
-    it. When the port was taken between the pick and the bind (other
-    tests of the box bind ephemeral ports too), again with a new one."""
+    collect their output; the processes share one deadline and are
+    killed past it.
+
+    A port picked here can be taken by another process of the box before
+    the group's store binds it, or the store's clients can reach whatever
+    took it: the group then never forms (a bind error, a refused or reset
+    connection, or a hang). So when a process failed or hung BEFORE every
+    process printed ``MP_JOINED`` (the group formed), the run starts
+    again on a new port; a failure after the group formed is the code's,
+    and raises with the processes' output at once."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     env["PYTHONPATH"] = ROOT
@@ -74,23 +83,35 @@ def _run(code_args, n, timeout=PROC_TIMEOUT_S, attempts=3):
              *code_args(i, port)], env=env, cwd=ROOT,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for i in range(n)]
-        outs = []
+        deadline = time.monotonic() + timeout
+        outs, hung = [], []
         try:
-            for p in procs:
-                out, _ = p.communicate(timeout=timeout)
+            for i, p in enumerate(procs):
+                try:
+                    out, _ = p.communicate(
+                        timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    out, _ = p.communicate()
+                    hung.append(i)
                 outs.append(out)
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        failed = [i for i, p in enumerate(procs) if p.returncode != 0]
-        if failed and attempt < attempts - 1 and any(
-                "address already in use" in o.lower() for o in outs):
+        failed = [i for i, p in enumerate(procs)
+                  if p.returncode != 0 or i in hung]
+        if not failed:
+            return outs
+        joined = all(JOINED in o for o in outs)
+        if not joined and attempt < attempts - 1:
             continue
-        for i in failed:
-            raise AssertionError((i, outs[i][-4000:]))
-        return outs
+        i = failed[0]
+        raise AssertionError((i, "hung past the deadline" if i in hung
+                              else f"exit {procs[i].returncode}",
+                              "group formed" if joined
+                              else "group never formed", outs[i][-4000:]))
 
 
 def _answers(out: str) -> dict:
@@ -159,6 +180,7 @@ def _single(coord: str) -> None:
     from tfidf_tpu_torch.parallel import mesh as M
     from tfidf_tpu_torch.parallel.collectives import ProcessGroup
     assert M.initialize_multihost(coord, 1, 0, local_devices=["cpu"] * 2)
+    print(JOINED, flush=True)
     assert M.initialize_multihost() is False
     m = M.make_mesh()
     assert isinstance(m.comm, ProcessGroup)
@@ -173,6 +195,7 @@ def _worker(coord: str, n: int, pid: int, tmp: str) -> None:
 
     assert initialize_multihost(coord, num_processes=n, process_id=pid,
                                 local_devices=["cpu", "cpu"])
+    print(JOINED, flush=True)
 
     def cfg(mode, layout="coo"):
         return Config(documents_path=os.path.join(tmp, f"{mode}{layout}"

@@ -1,6 +1,7 @@
 """Benchmark: the BASELINE.md configs on the CUDA card.
 
-    python -m tfidf_tpu_torch bench
+    python -m tfidf_tpu_torch bench        # or: python -m tfidf_tpu_torch.bench
+    python -m tfidf_tpu_torch bench --<mode>    # the seven other modes
 
 The port of the repository's root ``bench.py`` ``main()`` and everything
 it reaches, with the same function names, constants, corpora and gates:
@@ -36,6 +37,10 @@ Human-readable detail goes to stderr.
 Each config function takes its sizes and ``device`` as keyword arguments
 (the module constants, and the card, by default); ``main()`` passes
 nothing. ``device="cpu"`` runs every kernel's plain PyTorch version.
+
+The root ``bench.py``'s other modes (``--overload``, ``--replay``,
+``--routers``, ``--kernel``, ``--hybrid``, ``--tier``, ``--compute``) are
+in ``tfidf_tpu_torch/bench_modes.py``; :func:`run` dispatches to them.
 """
 
 from __future__ import annotations
@@ -581,6 +586,14 @@ class _KeepAlive:
 
     def post(self, hostport: tuple[str, int], path: str, data: bytes,
              timeout: float = 600.0) -> bytes:
+        return self.post_full(hostport, path, data, timeout=timeout)[2]
+
+    def post_full(self, hostport: tuple[str, int], path: str,
+                  data: bytes, timeout: float = 600.0,
+                  headers: dict | None = None
+                  ) -> tuple[int, dict, bytes]:
+        """(status, response headers, body): the overload modes see 429
+        sheds and their Retry-After, not just bytes."""
         import http.client
         import socket
         key = f"conn_{hostport[1]}"
@@ -597,9 +610,17 @@ class _KeepAlive:
                     c.sock.setsockopt(socket.IPPROTO_TCP,
                                       socket.TCP_NODELAY, 1)
                     setattr(self._tls, key, c)
-                c.request("POST", path, body=data, headers={
-                    "Content-Type": "application/octet-stream"})
-                return c.getresponse().read()
+                h = {"Content-Type": "application/octet-stream"}
+                h.update(headers or {})
+                c.request("POST", path, body=data, headers=h)
+                r = c.getresponse()
+                body = r.read()
+                hdrs = dict(r.getheaders())
+                if r.status == 429 and r.will_close:
+                    # the shed path closes the connection: drop ours too
+                    c.close()
+                    setattr(self._tls, key, None)
+                return r.status, hdrs, body
             except Exception as e:
                 last = e
                 c.close()
@@ -1291,10 +1312,11 @@ def _validated_json(obj: dict, what: str) -> str:
     return line
 
 
-def _emit_validated(result: dict, headline: dict | None = None) -> None:
+def _emit_validated(result: dict, headline: dict | None = None, *,
+                    name: str = "BENCH_DETAIL.json") -> None:
     """Artifact-first emission: the FULL result JSON is written to the
     artifact file FIRST — ``BENCH_OUT`` when set, else
-    ``build/bench/BENCH_DETAIL.json`` beside the package — fsynced,
+    ``build/bench/<name>`` beside the package — fsynced,
     re-read and re-parsed; only then does stdout get a COMPACT headline
     line (the required metric keys plus every per-config headline
     number). A cut stdout tail can lose detail only from a durable file,
@@ -1309,7 +1331,7 @@ def _emit_validated(result: dict, headline: dict | None = None) -> None:
                       _WINDOW_BUILDS["n"])
     full_line = _validated_json(result, "full result")
     out_path = os.environ.get("BENCH_OUT") or os.path.join(
-        ROOT, "build", "bench", "BENCH_DETAIL.json")
+        ROOT, "build", "bench", name)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w", encoding="utf-8") as f:
         f.write(full_line + "\n")
@@ -1452,3 +1474,18 @@ def main() -> None:
         "c2g_direct_worker_qps": c2g["direct_worker_qps"],
     }
     _emit_validated(result, headline)
+
+
+def run(argv: list[str]) -> None:
+    """``main()``, or the mode named by a ``--<mode>`` flag (the root
+    ``bench.py``'s dispatch): ``tfidf_tpu_torch/bench_modes.py``."""
+    from tfidf_tpu_torch import bench_modes
+    for mode in bench_modes.MODES:
+        if f"--{mode}" in argv:
+            bench_modes.MAINS[mode]()
+            return
+    main()
+
+
+if __name__ == "__main__":
+    run(sys.argv[1:])

@@ -18,7 +18,9 @@ The reference ships one Spring Boot fat jar that every node runs
     trace        client: fetch + render a distributed request trace
     autopilot    client: SLO-autopilot state, decision audit, kill switch
     faults       chaos tooling: list registered fault points
-    bench        BASELINE's configs on the CUDA card (tfidf_tpu_torch.bench)
+    bench        BASELINE's configs on the CUDA card (tfidf_tpu_torch.bench);
+                 --overload/--replay/--routers/--kernel/--hybrid/--tier/
+                 --compute run the root bench.py's other modes
 
 Config resolution (lowest to highest): dataclass defaults, --config JSON
 file, TFIDF_* environment variables, explicit flags — mirroring the
@@ -1025,7 +1027,8 @@ def cmd_scrub(args) -> int:
 
 def cmd_bench(args) -> int:
     # the port's own bench (tfidf_tpu_torch/bench.py): BASELINE's configs
-    # on the card, each gated by its oracle
+    # on the card, each gated by its oracle; a --<mode> flag runs one of
+    # the root bench.py's other modes (tfidf_tpu_torch/bench_modes.py)
     from tfidf_tpu_torch import bench
     from tfidf_tpu_torch.device import resolve_device
     try:
@@ -1033,7 +1036,11 @@ def cmd_bench(args) -> int:
     except RuntimeError as e:
         print(str(e), file=sys.stderr)
         return 2
-    bench.main()
+    if args.mode is None:
+        bench.main()
+    else:
+        from tfidf_tpu_torch import bench_modes
+        bench_modes.MAINS[args.mode]()
     return 0
 
 
@@ -1185,6 +1192,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_autopilot)
 
     s = sub.add_parser("bench", help="run the benchmark on the CUDA card")
+    g = s.add_mutually_exclusive_group()
+    for mode in ("overload", "replay", "routers", "kernel", "hybrid",
+                 "tier", "compute"):
+        g.add_argument(f"--{mode}", dest="mode", action="store_const",
+                       const=mode, help=f"the root bench.py's --{mode} "
+                       "mode (tfidf_tpu_torch/bench_modes.py)")
     s.set_defaults(fn=cmd_bench)
 
     s = sub.add_parser("scrub",
