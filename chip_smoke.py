@@ -150,13 +150,29 @@ beside it. Phases (any failure fails the run):
    the card and, by ``nvidia-smi``'s count, nothing else of theirs; the
    ELL launches counted over the modes (this process's and the fleet
    workers').
+12. the device witness (right after phase 3d, on phase 3's engine: the
+   1M-doc north star, ``Config()`` defaults, kernel v4, batch 512,
+   top-10): ``tfidf_tpu_torch/tools/graftcheck/device_witness.py``
+   installed, 2 warm-up batches, ``end_warmup()``, then 8
+   ``search_batch`` batches and 2 ``search_batch_arrays`` chunks (half
+   pipelined, half inline) and 2 dense batches on phase 3d's column. The
+   phase fails on a kernel build after warmup, on a device->host sync the
+   card reported (``torch.cuda.set_sync_debug_mode("warn")``) or a tensor
+   transfer seen from Python at a site the static cone does not explain,
+   on a reported sync with no port frame on its stack, on no observation
+   at all, on no v4 launch in the window, or on a
+   witnessed batch that differs by a bit from the same batch served
+   without the witness. Prints one ``{"witness": ...}`` line: syncs per
+   batch by site and direction (blocking host->device copies among them)
+   and the window's seconds.
 
 After every phase with nothing armed, each engine's compute health must
 be healthy with no new fault and no fallback-served request.
 
 Then one ``{"kernels": [...]}`` line (per kernel: launches on its path,
 ``launches_mesh`` on phase 9a's, ``launches_bench`` over phase 10's
-in-process configs, ``launches_modes`` over phase 11's modes, max abs
+in-process configs, ``launches_modes`` over phase 11's modes,
+``launches_witness`` in phase 12's window, max abs
 error against the plain version, kernel / plain / library ms per
 main-path batch and the bound), and as the last line ``{"ok": true,
 "device": {...}}``. The full record of the run goes to
@@ -1241,6 +1257,123 @@ def dense_phase(ctx, seed: int) -> dict:
     check_clean(engine, "dense plane")
     ctx["dense_queries"] = served[:NS_BATCH]
     ctx["dense_hits"] = hits[:NS_BATCH]
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 12: the device witness on the served path, at the north star
+# --------------------------------------------------------------------------
+
+WITNESS_BATCHES = 8            # search_batch batches in the window
+WITNESS_ARRAYS = 2             # search_batch_arrays chunks in the window
+WITNESS_DENSE = 2              # dense batches on phase 3d's column
+WITNESS_WARM = 2               # warm-up batches before end_warmup()
+
+
+def witness_phase(ctx, seed: int) -> dict:
+    """Phase 12: the device witness around phase 3's engine (the 1M-doc
+    north star, ``Config()`` defaults, ELL kernel v4, batch 512, top-10):
+    installed, two warm-up batches, ``end_warmup()``, then 8
+    ``search_batch`` batches and 2 ``search_batch_arrays`` chunks (half
+    through ``_run_pipelined``, half through ``_run_inline``) and 2 dense
+    batches. Gates: no kernel build after warmup, every device->host sync
+    the card reported (and every tensor transfer seen from Python) at a
+    site the static cone explains, no reported sync outside the port, at
+    least one observation, v4 launches in the window, and every witnessed
+    batch's results equal to the bit to the same batch served without the
+    witness."""
+    from tfidf_tpu_torch import kernels
+    from tfidf_tpu_torch.ops import ell as E
+    from tfidf_tpu_torch.tools.graftcheck.device_witness import \
+        DeviceWitness
+    t_phase = time.perf_counter()
+    engine = ctx["engine"]
+    searcher = engine.searcher
+    rng = np.random.default_rng(seed + 12)
+    n_sparse = (WITNESS_WARM + WITNESS_BATCHES + WITNESS_ARRAYS) * NS_BATCH
+    qs = make_queries(rng, NS_VOCAB, n_sparse)
+    warm = qs[:WITNESS_WARM * NS_BATCH]
+    batches = [qs[(WITNESS_WARM + i) * NS_BATCH:
+                  (WITNESS_WARM + i + 1) * NS_BATCH]
+               for i in range(WITNESS_BATCHES + WITNESS_ARRAYS)]
+    dense_q = [ctx["dense_queries"]] * WITNESS_DENSE
+
+    def serve(i, b):
+        # the first half of each kind pipelined, the second inline
+        if i < WITNESS_BATCHES:
+            searcher.pipeline_mode = ("executor" if i < WITNESS_BATCHES // 2
+                                      else "inline")
+            return engine.search_batch(b, k=TOP_K)
+        j = i - WITNESS_BATCHES
+        searcher.pipeline_mode = ("executor" if j < WITNESS_ARRAYS // 2
+                                  else "inline")
+        vals, ids, kk, _names = engine.search_batch_arrays(b, k=TOP_K)
+        return vals.tobytes(), ids.tobytes(), kk
+
+    # the same batches without the witness: what they must answer
+    want = [serve(i, b) for i, b in enumerate(batches)]
+    want_dense = [engine.search_dense_batch(q, k=TOP_K) for q in dense_q]
+    searcher.pipeline_mode = "auto"
+    builds0 = kernels.build_count()
+
+    w = DeviceWitness()
+    w.install()
+    try:
+        for i in range(WITNESS_WARM):
+            searcher.pipeline_mode = ("executor", "inline")[i % 2]
+            engine.search_batch(warm[i * NS_BATCH:(i + 1) * NS_BATCH],
+                                k=TOP_K)
+        w.end_warmup()
+        warm_obs, warm_syncs = dict(w.observed), dict(w.syncs)
+        E.reset_launches()
+        t0 = time.perf_counter()
+        got = [serve(i, b) for i, b in enumerate(batches)]
+        got_dense = [engine.search_dense_batch(q, k=TOP_K)
+                     for q in dense_q]
+        window_s = time.perf_counter() - t0
+        launches = dict(E.launches)
+    finally:
+        w.uninstall()
+        searcher.pipeline_mode = "auto"
+    n = len(batches) + len(dense_q)
+
+    def window(now: dict, before: dict) -> dict:
+        """Per-batch counts in the window (warm-up counts subtracted)."""
+        return {" ".join(k): (v - before.get(k, 0)) / n
+                for k, v in sorted(now.items()) if v > before.get(k, 0)}
+    syncs = window(w.syncs, warm_syncs)
+    res = {"batches": {"search_batch": WITNESS_BATCHES,
+                       "search_batch_arrays": WITNESS_ARRAYS,
+                       "dense": WITNESS_DENSE, "batch": NS_BATCH},
+           "window_s": window_s, "launches": launches,
+           "builds_after_warmup": w.post_warmup_builds(),
+           "builds_in_phase": kernels.build_count() - builds0,
+           "observations": w.n_observations(),
+           "unattributed_syncs": w.unattributed,
+           "syncs_per_batch": syncs,
+           "transfers_per_batch": window(w.observed, warm_obs),
+           "h2d_blocking_per_batch": {k: v for k, v in syncs.items()
+                                      if k.endswith(" h2d")},
+           "warmup": {"syncs": {" ".join(k): v
+                                for k, v in warm_syncs.items()},
+                      "transfers": {" ".join(k): v
+                                    for k, v in warm_obs.items()}},
+           "explained_sites": sorted(".".join(x) for x in w.explained)}
+    log(f"[witness] {w.report()}")
+    w.check(max_post_warmup_builds=0, min_observations=n)
+    if launches["v4"] <= 0 or launches["v3"] != 0:
+        raise SystemExit(f"witness: launches in the window {launches}")
+    if got != want or got_dense != want_dense:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise SystemExit(f"witness: witnessed batches {bad} (dense "
+                         f"{got_dense != want_dense}) differ from the same "
+                         f"batches served without the witness")
+    res["results_bitwise_equal"] = True
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[witness] {n} batches in {window_s:.3f}s, launches {launches}, "
+        f"every witnessed batch equal to the bit to the unwitnessed one; "
+        f"phase 12 took {res['seconds']:.1f}s")
+    check_clean(engine, "witness phase")
     return res
 
 
@@ -3732,6 +3865,13 @@ def main() -> int:
     main_res, ctx = main_path(args.seed, args.docs)
     # ---- phase 3d: the dense plane ----
     dense = dense_phase(ctx, args.seed)
+    # ---- phase 12: the device witness, on phase 3's engine ----
+    witness = witness_phase(ctx, args.seed)
+    print(json.dumps({"witness": {
+        k: witness[k] for k in ("window_s", "batches", "launches",
+                                "builds_after_warmup", "observations",
+                                "syncs_per_batch", "transfers_per_batch",
+                                "h2d_blocking_per_batch")}}), flush=True)
     # ---- phase 4: the text path ----
     text = text_path()
     # ---- phases 5-6: the worker engine, the durable text path ----
@@ -3777,6 +3917,7 @@ def main() -> int:
          "launches_mesh": mesh["ell"]["launches"][a],
          "launches_bench": bench["launches"][a],
          "launches_modes": modes["launches"][a],
+         "launches_witness": witness["launches"][a],
          "max_abs_err": max(cases["max_abs_err"], kt["max_abs_err"],
                             mesh["ell"]["kernel"]["max_abs_err"],
                             bench["c5_kernel"]["max_abs_err"],
@@ -3795,7 +3936,7 @@ def main() -> int:
                    "worker": worker,
                    "durable": durable, "streaming": streaming,
                    "mesh": mesh, "fleet": fleet, "bench": bench,
-                   "modes": modes,
+                   "modes": modes, "witness": witness,
                    "build": {n: v["seconds"] for n, v in info.items()},
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

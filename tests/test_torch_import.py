@@ -59,6 +59,13 @@ MESH_MODULES = ("parallel", "parallel.mesh", "parallel.collectives",
 # the bench slice's modules
 BENCH_MODULES = ("bench", "bench_modes", "utils.textgen")
 
+# the port's graftcheck (its static analysis and runtime witnesses)
+TOOLS_MODULES = tuple(f"tools.graftcheck.{m}" for m in (
+    "core", "lockgraph", "jitpurity", "devicecheck", "registry_drift",
+    "resilience", "wallclock", "protocol", "deadsymbols", "storageseam",
+    "witness", "protocol_witness", "device_witness", "__main__")) + (
+    "tools", "tools.graftcheck")
+
 
 def test_whole_port_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -69,7 +76,7 @@ def test_whole_port_imports_with_jax_blocked():
     assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
     loaded = set(r.stdout.split("HAS")[1].split())
     for mod in (WORKER_MODULES + CLUSTER_MODULES + SEGMENT_MODULES
-                + MESH_MODULES + BENCH_MODULES):
+                + MESH_MODULES + BENCH_MODULES + TOOLS_MODULES):
         assert f"tfidf_tpu_torch.{mod}" in loaded, mod
 
 
@@ -187,6 +194,31 @@ def _imported_roots(path):
     return roots
 
 
+def test_graftcheck_modules_import_alone():
+    """The port's graftcheck imports with ``jax``, ``tfidf_tpu`` and the
+    root ``tools`` package all blocked, and its static passes load no
+    torch: they parse the port, never import it."""
+    static = [m for m in TOOLS_MODULES if not m.endswith(
+        ("witness", "__main__"))]
+    code = ("import sys, importlib\n"
+            "for blocked in ('jax', 'tfidf_tpu', 'tools'):\n"
+            "    sys.modules[blocked] = None\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module('tfidf_tpu_torch.' + m)\n"
+            "print('torch' in sys.modules)\n"
+            "import tfidf_tpu_torch.tools.graftcheck.device_witness\n"
+            "import tfidf_tpu_torch.tools.graftcheck.witness\n"
+            "import tfidf_tpu_torch.tools.graftcheck.protocol_witness\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'tfidf_tpu', 'tools') and sys.modules[k] is not None))"
+            "\n")
+    r = subprocess.run([sys.executable, "-c", code, *static], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["False", "[]"], r.stdout
+
+
 def test_port_and_chip_smoke_never_import_jax_or_the_reference():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _dirs, names in os.walk(PKG):
@@ -196,9 +228,10 @@ def test_port_and_chip_smoke_never_import_jax_or_the_reference():
     for path in files:
         for mod in _imported_roots(path):
             top = mod.split(".")[0]
-            # nor the root bench.py or kernel_parity.py (which import jax)
+            # nor the root bench.py or kernel_parity.py (which import
+            # jax), nor the root tools/ (the JAX package's graftcheck)
             assert top not in ("jax", "jaxlib", "tfidf_tpu", "bench",
-                               "kernel_parity"), (path, mod)
+                               "kernel_parity", "tools"), (path, mod)
 
 
 def test_package_init_is_light():

@@ -664,8 +664,11 @@ def _worker_launches(urls: list[str], node_dev: str) -> list[int]:
         m = json.loads(_http_get(url + "/api/metrics"))
         out.append(int(m.get("ell_kernel_launches_v4", 0)
                        + m.get("ell_kernel_launches_v3", 0)))
-    assert not node_dev.startswith("cuda") or all(out), \
-        f"a worker on {node_dev} launched no ELL kernel: {out}"
+    if node_dev.startswith("cuda") and not all(out):
+        # the bytes each worker's index holds: 0 = no document placed there
+        sizes = [int(_http_get(u + "/worker/index-size")) for u in urls]
+        raise AssertionError(f"a worker on {node_dev} launched no ELL "
+                             f"kernel: {out}; index bytes {sizes}")
     return out
 
 

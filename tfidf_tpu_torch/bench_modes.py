@@ -715,7 +715,9 @@ def bench_replay(rng, *, n_docs: int = R10_DOCS, vocab: int = R10_VOCAB,
                         for c in range(R10_CLIENTS)]
                 futs += [ex.submit(one_client, "bulk", c, seconds,
                                    measured) for c in range(R10_BULK)]
-                return [f.result() for f in futs]
+                # each client stops at its deadline; its last request
+                # may take up to its 60 s socket timeout
+                return [f.result(timeout=seconds + 120.0) for f in futs]
 
         round_(warm_s, measured=False)   # first commits + the cache head
         res = round_(capture_s, measured=True)

@@ -256,7 +256,7 @@ def score_block_plain(imp_t: torch.Tensor, term_t: torch.Tensor,
     return out
 
 
-def _lib():
+def _lib() -> ctypes.CDLL:
     """The library of ``csrc/ell_score.cu`` (built at first use), with the
     ctypes signatures of its two C entry points."""
     from tfidf_tpu_torch import kernels
