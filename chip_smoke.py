@@ -58,7 +58,7 @@ beside it. Phases (any failure fails the run):
    fallback), a clean call heals it, ``dense:oom`` merges through the
    ladder, ``dense:poison`` answers with empty hit lists as the JAX
    package does;
-6. the durable text path: 10,000 generated ASCII documents through
+6. the durable text path: 5,000 generated ASCII documents through
    ``stage_bytes`` -> group fsync -> ``publish_staged`` (native tokenizer
    for every one, dense plane off), then ``build_from_directory`` with
    the dense plane on in a fresh engine (the Python analyzer; every
@@ -69,8 +69,9 @@ beside it. Phases (any failure fails the run):
    worker's checkpoint; then one ``python -m tfidf_tpu_torch`` process per
    node on the one card (a ``coordinator``, a ``serve`` leader, two
    ``serve`` workers restoring their shards at boot, a ``router``), the
-   default ``Config`` with ``replication_factor=1`` and coordination
-   sessions of 30 s (``FLEET_ENV``). From 64 client
+   default ``Config`` with ``replication_factor=1``, coordination
+   sessions of 30 s, no result caches and phase 13's compute-plane knobs
+   (``FLEET_ENV``; those act only on an injected fault). From 64 client
    threads, one query a ``POST /leader/start``: 1,024 sparse, 512
    dense and 512 hybrid (rrf) queries through the leader, 512 sparse
    through the router; then 500 new documents through
@@ -133,7 +134,7 @@ beside it. Phases (any failure fails the run):
    functions for the configs no earlier phase covers: config 1 (18k text
    docs, batch 4096: outside the kernel's envelope, so its launches come
    from the next two) and config 5 (200k docs over a 5M-term vocabulary)
-   at the bench's sizes, the realistic text at 10,000 textgen docs (the
+   at the bench's sizes, the realistic text at 5,000 textgen docs (the
    bench's 100,000; the binary ones refused), with the ELL launches
    counted from 0 over the three; one config-5 batch through every
    eligible block, v3 and v4 == plain bitwise, with the kernel / plain /
@@ -166,13 +167,43 @@ beside it. Phases (any failure fails the run):
    batch by site and direction (blocking host->device copies among them)
    and the window's seconds.
 
+13. chaos on phase 7's fleet (after phase 7's gates, before its SIGTERM
+   teardown): the compute chaos job of ``tests/test_compute_chaos.py``
+   adapted to two workers, then a kill -9. ``CHAOS_CLIENTS`` closed-loop
+   client threads draw from a zipfian pool of 256 north-star queries
+   phase 7 did not send (``--seed``) and one poison query (the six terms
+   with the most documents in both shards); every reply is classified
+   (``classify_reply``: exact, compute_degraded, degraded, failed) against
+   its baseline reply, and an unmarked 200 that is not in parity fails
+   the phase. The per-shard scipy oracle now holds phase 7's uploads on
+   the worker that took each. Legs: (1) every pool query exact and
+   unstamped, held to the oracle; (2) ``score_ell:poison:1.0:min_uniq=6``
+   on both workers: the quarantine engages on exactly both, the next send
+   is a 422 with ``X-Poison-Quarantined``, innocent queries stay exact on
+   the device with both workers healthy and launching v4, and clearing
+   the nemesis and the quarantine admits the query with its baseline
+   reply; (3) ``*:oom`` on worker0 and a 0.2 s delay on worker1: worker0
+   goes sick and serves its share from the host mirror (at least one
+   ``compute_degraded`` reply, exact), its v4 launches flat while sick;
+   after ``{"clear": true}`` its probe heals it, replies converge to the
+   baseline unstamped and its v4 launches rise; (4) worker1 killed with
+   SIGKILL under the load: from then on every reply stamped
+   ``X-Scatter-Degraded`` must be worker0's per-shard oracle alone (an
+   honest partial), waiting on the leader's breaker or registry, then a
+   ``CHAOS_KILL_S`` window. Recorded: outcomes per leg, seconds from
+   arming to quarantine and to sick, from clearing to healed, from the
+   kill to the first stamped reply, the degraded q/s, v4 launches per
+   worker per leg, the card's ``memory.used`` before and after the kill.
+   The teardown's exit-0 gate holds for every process but the killed one.
+
 After every phase with nothing armed, each engine's compute health must
 be healthy with no new fault and no fallback-served request.
 
 Then one ``{"kernels": [...]}`` line (per kernel: launches on its path,
 ``launches_mesh`` on phase 9a's, ``launches_bench`` over phase 10's
 in-process configs, ``launches_modes`` over phase 11's modes,
-``launches_witness`` in phase 12's window, max abs
+``launches_witness`` in phase 12's window, ``launches_chaos`` the fleet
+workers' in phase 13, max abs
 error against the plain version, kernel / plain / library ms per
 main-path batch and the bound), and as the last line ``{"ok": true,
 "device": {...}}``. The full record of the run goes to
@@ -1813,8 +1844,9 @@ def make_texts(rng, n_docs: int, n_words: int = 30_000,
     return out
 
 
-DURABLE_DOCS = 10_000          # phase 6's documents (cut from 20,000 to
-                               # make room for phase 10 in the run's time)
+DURABLE_DOCS = 5_000           # phase 6's documents (cut from 20,000 to
+                               # make room for phase 10 in the run's time,
+                               # then from 10,000 for phase 13)
 
 
 def durable_phase(seed: int, work: str) -> dict:
@@ -2931,8 +2963,18 @@ FLEET_BOOT_S = 300.0       # deadline for the fleet to serve the corpus
 # a 1 s backstop. At the 3 s default a coordinator serving that traffic at
 # the north star stalls past the timeout and every node's session expires
 # (ROADMAP queue C).
+# Phase 13's knobs are the compute chaos job's: they act only once a fault
+# is injected, and with no result cache every chaos verdict comes from a
+# live scatter (a nemesis does not change the generation a cache keys on).
 FLEET_ENV = {"TFIDF_REPLICATION_FACTOR": "1",
-             "TFIDF_SESSION_TIMEOUT_S": "30"}
+             "TFIDF_SESSION_TIMEOUT_S": "30",
+             "TFIDF_RESULT_CACHE_ENTRIES": "0",
+             "TFIDF_ROUTER_CACHE_ENTRIES": "0",
+             "TFIDF_DEVICE_NEMESIS_API": "1",
+             "TFIDF_COMPUTE_SICK_AFTER": "3",
+             "TFIDF_COMPUTE_PROBE_INTERVAL_S": "0.5",
+             "TFIDF_POISON_QUARANTINE_AFTER": "2",
+             "TFIDF_OOM_BACKOFF_MIN_BATCH": "8"}
 # per-window means of these timings (ms) are read from /api/metrics
 FLEET_TIMINGS = {"leader": ("leader_search", "scatter_linger",
                             "scatter_batch_total", "scatter_rpc",
@@ -3005,6 +3047,7 @@ class Fleet:
     def __init__(self, logs: str) -> None:
         self.logs = logs
         self.procs: dict = {}
+        self.killed: set = set()
         self.env = dict(os.environ, PYTHONPATH=ROOT, **FLEET_ENV)
         self.env.pop("TFIDF_DEVICE", None)
 
@@ -3021,7 +3064,7 @@ class Fleet:
 
     def check_alive(self) -> None:
         for tag, (p, _, _) in self.procs.items():
-            if p.poll() is not None:
+            if tag not in self.killed and p.poll() is not None:
                 raise SystemExit(f"fleet: {tag} exited with {p.returncode}"
                                  f":\n{self.tail(tag)}")
 
@@ -3038,6 +3081,13 @@ class Fleet:
             if time.monotonic() > deadline:
                 raise SystemExit(f"fleet: timed out waiting for {what}")
             time.sleep(0.2)
+
+    def kill(self, tag: str) -> None:
+        """SIGKILL one process (a kill -9 mid-load) and reap it."""
+        p = self.procs[tag][0]
+        self.killed.add(tag)
+        p.kill()
+        p.wait(timeout=60)
 
     def stop(self) -> dict:
         """SIGTERM every process (workers and router first, the leader,
@@ -3206,63 +3256,146 @@ def hold(got: dict, cand, score_of, score_tol, tie_tol, what: str) -> int:
     return swaps
 
 
-def _top_candidates(s: np.ndarray, base: int, positive: bool) -> list:
+def _top_candidates(s: np.ndarray, base: int, positive: bool,
+                    name_of=None) -> list:
     """(name, score) of every doc at or above the k-th largest score
-    (above zero too, when ``positive``)."""
+    (above zero too, when ``positive``); doc ``i`` is ``name_of(i)``, by
+    default ``d<base + i>``."""
     k = min(TOP_K, s.shape[0])
     kth = np.partition(s, s.shape[0] - k)[s.shape[0] - k]
     idx = np.flatnonzero(s >= kth)
     if positive:
         idx = idx[s[idx] > 0]
-    return [(f"d{base + i}", float(s[i])) for i in idx]
+    name_of = name_of or (lambda i: f"d{base + i}")
+    return [(name_of(i), float(s[i])) for i in idx]
 
 
-def fleet_sparse_oracle(corpus, shards, queries, replies) -> tuple:
-    """Sparse replies against an f64 oracle that scores each shard with
-    its own df, N and average length (what each worker computes) and
-    merges by (-score, name): each shard's impacts in a scipy CSR matrix
-    by term, a query's scores the sum of its terms' rows. Returns (stats,
-    per-query swaps, the oracle's top-k maps)."""
+def sparse_mats(corpus, shards, vocab: int = NS_VOCAB) -> list:
+    """Each shard's postings as a scipy CSR matrix of term frequencies by
+    term (``[vocab, docs]``) with its docs' lengths: the oracle scores a
+    shard with that shard's own df, N and average length, which is what
+    its worker computes. ``[{"lo", "parts": [(tf by term, lengths)],
+    "extra": names of docs after the bulk-loaded ones}, ...]``."""
     import scipy.sparse as sp
     offsets, ids, tfs, lengths = corpus
-    k1, b = 1.2, 0.75
     mats = []
     for sh in shards:
         lo, hi = sh["lo"], sh["hi"]
         a, z = offsets[lo], offsets[hi]
         n = hi - lo
-        sid, stf = ids[a:z], tfs[a:z].astype(np.float64)
-        slen = lengths[lo:hi].astype(np.float64)
-        row = np.repeat(np.arange(n), np.diff(offsets[lo:hi + 1]))
-        df = np.bincount(sid, minlength=NS_VOCAB).astype(np.float64)
-        idf = np.log1p((n - df + 0.5) / (df + 0.5))
-        imp = idf[sid] * stf / (stf + k1 * (1 - b + b * slen[row]
-                                            / slen.mean()))
-        by_term = sp.csr_matrix((imp, (sid.astype(np.int64), row)),
-                                shape=(NS_VOCAB, n))
-        mats.append((lo, n, by_term))
+        # each doc's ids are distinct: transpose the doc-major CSR
+        by_term = sp.csr_matrix((tfs[a:z].astype(np.float64), ids[a:z],
+                                 offsets[lo:hi + 1] - a),
+                                shape=(n, vocab)).T.tocsr()
+        mats.append({"lo": lo, "parts": [
+            (by_term, lengths[lo:hi].astype(np.float64))], "extra": []})
+    return mats
+
+
+def with_uploads(mats, docs, held, vocab: int = NS_VOCAB) -> list:
+    """``mats`` with the uploaded ``docs`` (``{"name", "text"}``, words
+    ``t<id>`` and one ``fresh<i>`` outside the vocabulary) each shard's
+    worker holds (``held``: one set of names a shard) after its docs."""
+    import scipy.sparse as sp
+    out = []
+    for m, names in zip(mats, held):
+        mine = [d for d in docs if d["name"] in names]
+        cols, rows, vals, lens = [], [], [], []
+        for j, d in enumerate(mine):
+            words = d["text"].split()
+            t, c = np.unique([int(w[1:]) for w in words
+                              if w.startswith("t")], return_counts=True)
+            rows.append(t)
+            cols.append(np.full(t.shape[0], j))
+            vals.append(c.astype(np.float64))
+            lens.append(len(words))
+        parts = list(m["parts"])
+        if mine:
+            parts.append((sp.csr_matrix(
+                (np.concatenate(vals), (np.concatenate(rows),
+                                        np.concatenate(cols))),
+                shape=(vocab, len(mine))), np.array(lens, np.float64)))
+        out.append({"lo": m["lo"], "parts": parts,
+                    "extra": m["extra"] + [d["name"] for d in mine]})
+    return out
+
+
+def shard_scores(mats, query: str) -> list:
+    """``[(shard, f64 BM25 scores of its docs), ...]`` for one query: per
+    term, idf from the shard's df and N, each posting's tf normalised by
+    the shard's average length, times the term's count in the query."""
+    k1, b = 1.2, 0.75
+    terms, counts = np.unique([int(t[1:]) for t in query.split()],
+                              return_counts=True)
+    rows = []
+    for m in mats:
+        lens = [ln for _, ln in m["parts"]]
+        n = sum(ln.shape[0] for ln in lens)
+        avgdl = sum(ln.sum() for ln in lens) / n
+        s_ = [np.zeros(ln.shape[0]) for ln in lens]
+        for t, c in zip(terms, counts):
+            df = sum(M.indptr[t + 1] - M.indptr[t] for M, _ in m["parts"])
+            idf = np.log1p((n - df + 0.5) / (df + 0.5))
+            for (M, ln), sp_ in zip(m["parts"], s_):
+                a, z = M.indptr[t], M.indptr[t + 1]
+                d, tf = M.indices[a:z], M.data[a:z]
+                sp_[d] += c * (idf * tf / (tf + k1 * (1 - b + b * ln[d]
+                                                      / avgdl)))
+        rows.append((m, np.concatenate(s_)))
+    return rows
+
+
+def _shard_candidates(rows) -> list:
+    cand = []
+    for m, s_ in rows:
+        nb = s_.shape[0] - len(m["extra"])
+
+        def name_of(i, m=m, nb=nb):
+            return f"d{m['lo'] + i}" if i < nb else m["extra"][i - nb]
+        cand += _top_candidates(s_, 0, True, name_of)
+    return cand
+
+
+def oracle_top(rows) -> dict:
+    """The top-k map (name -> f64 score, in (-score, name) order) of the
+    merge of ``rows`` (``shard_scores`` of some shards)."""
+    return dict(sorted(_shard_candidates(rows),
+                       key=lambda t: (-t[1], t[0]))[:TOP_K])
+
+
+def hold_shards(got: dict, rows, what: str) -> tuple:
+    """One sparse reply against the merge of ``rows`` (``shard_scores``
+    of the shards that answered). Returns (near-tie swaps, the oracle's
+    top-k map)."""
+    cand = _shard_candidates(rows)
+    score = {nm: s_[s_.shape[0] - len(m["extra"]) + j]
+             for m, s_ in rows for j, nm in enumerate(m["extra"])}
+
+    def score_of(name):
+        if name in score:
+            return float(score[name])
+        d = int(name[1:]) if name[:1] == "d" and name[1:].isdigit() else -1
+        for m, s_ in rows:
+            if 0 <= d - m["lo"] < s_.shape[0] - len(m["extra"]):
+                return float(s_[d - m["lo"]])
+        raise SystemExit(f"fleet {what}: {name} is on no shard that "
+                         f"answered")
+
+    return (hold(got, cand, score_of, lambda v: 1e-5 * abs(v),
+                 lambda v: 1e-6 * abs(v), what),
+            dict(sorted(cand, key=lambda t: (-t[1], t[0]))[:TOP_K]))
+
+
+def fleet_sparse_oracle(corpus, shards, queries, replies,
+                        mats=None) -> tuple:
+    """Sparse replies against an f64 oracle that scores each shard with
+    its own statistics (``sparse_mats``) and merges by (-score, name).
+    Returns (stats, per-query swaps, the oracle's top-k maps)."""
+    mats = mats or sparse_mats(corpus, shards)
 
     def one(i):
-        terms, counts = np.unique([int(t[1:]) for t in queries[i].split()],
-                                  return_counts=True)
-        cand, rows = [], []
-        for lo, n, M in mats:
-            s_ = np.zeros(n)
-            for t, c in zip(terms, counts):
-                a, z = M.indptr[t], M.indptr[t + 1]
-                s_[M.indices[a:z]] += c * M.data[a:z]
-            cand += _top_candidates(s_, lo, positive=True)
-            rows.append((lo, s_))
-
-        def score_of(name):
-            d = int(name[1:])
-            for lo, s_ in reversed(rows):
-                if d >= lo:
-                    return float(s_[d - lo])
-
-        return (hold(replies[i], cand, score_of, lambda v: 1e-5 * abs(v),
-                     lambda v: 1e-6 * abs(v), f"sparse q{i}"),
-                dict(sorted(cand, key=lambda t: (-t[1], t[0]))[:TOP_K]))
+        return hold_shards(replies[i], shard_scores(mats, queries[i]),
+                           f"sparse q{i}")
 
     # numpy's array loops release the GIL: one thread per core
     from concurrent.futures import ThreadPoolExecutor
@@ -3347,6 +3480,409 @@ def fleet_hybrid_check(hybrid, sparse, dense, s_top, d_top, s_swaps,
         oracle_equal += 1
     return {"queries": len(hybrid), "equal_to_fused_oracles": oracle_equal,
             "held_to_fused_stages_near_tie": tie_held}
+
+
+# --------------------------------------------------------------------------
+# phase 13: the compute chaos job on phase 7's fleet, and a kill -9
+# --------------------------------------------------------------------------
+
+CHAOS_POOL = 256           # north-star queries phase 7 did not send
+CHAOS_CLIENTS = 8          # closed-loop client threads over the pool
+CHAOS_POISON_UNIQ = 6      # the poison rule's min_uniq (distinct terms)
+CHAOS_PROBES = 32          # innocent queries sent while the poison is held
+# the two windows were 15 s and 10 s until a run on a slow machine took
+# 1,216 s in all: cut to keep the run inside its time limit
+CHAOS_SICK_S = 8.0         # the window with worker0 sick and worker1 wedged
+CHAOS_KILL_S = 5.0         # the window after worker1's kill -9
+CHAOS_WAIT_S = 120.0       # deadline of every wait in the phase
+VERDICTS = ("exact", "compute_degraded", "degraded", "failed")
+
+
+def classify_reply(status, hdrs, got, want, partial=None) -> str:
+    """One reply's verdict, as the compute chaos job
+    (``tests/test_compute_chaos.py``) classifies it: ``failed`` (no 200),
+    ``exact`` / ``compute_degraded`` (the baseline reply, the latter
+    stamped ``X-Compute-Degraded``), ``degraded`` (stamped, not the
+    baseline). With ``partial`` (the oracle of the shards still alive) a
+    reply stamped ``X-Scatter-Degraded`` must pass it: an honest partial,
+    not a wrong one. An unmarked 200 that is not the baseline fails."""
+    if status != 200:
+        return "failed"
+    scatter = bool(hdrs.get("X-Scatter-Degraded"))
+    if scatter and partial is not None:
+        if not partial(got):
+            raise SystemExit(f"chaos: a reply stamped X-Scatter-Degraded "
+                             f"({hdrs.get('X-Scatter-Degraded')}) is not "
+                             f"the live shards' oracle: {got}")
+        return "degraded"
+    if got == want:
+        return "compute_degraded" if hdrs.get("X-Compute-Degraded") \
+            else "exact"
+    if scatter or hdrs.get("X-Compute-Degraded"):
+        return "degraded"
+    raise SystemExit(f"chaos: an unmarked 200 is not in parity: {got} vs "
+                     f"the baseline {want}")
+
+
+def shard_partial(mats, query: str, live: tuple):
+    """The check of a partial reply to ``query``: it must be the oracle
+    of the shards ``live`` (indices into ``mats``) alone."""
+    def check(got) -> bool:
+        rows = [shard_scores([mats[i]], query)[0] for i in live]
+        try:
+            hold_shards(got, rows, f"partial of shards {live}")
+        except SystemExit:
+            return False
+        return True
+    return check
+
+
+def poison_terms(mats, n: int = CHAOS_POISON_UNIQ) -> str:
+    """A query of the ``n`` terms with the most documents in every shard:
+    each has a positive weight on both workers, so a ``min_uniq=n`` poison
+    rule NaNs its row there and no 2-4-term pool query's."""
+    df = np.min([np.diff(m["parts"][0][0].indptr) for m in mats], axis=0)
+    top = np.argsort(-df, kind="stable")[:n]
+    return " ".join(f"t{t}" for t in sorted(top.tolist()))
+
+
+def http_post_full(url: str, body, timeout: float = 120.0) -> tuple:
+    """POST JSON; (status, headers, decoded body or None), any status."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        try:
+            got = json.loads(raw)
+        except ValueError:
+            got = None
+        return e.code, dict(e.headers), got
+
+
+class ChaosLoad:
+    """CHAOS_CLIENTS closed-loop clients, each drawing a query of the pool
+    as the compute chaos job does (``pool[int(r ** 2 * len(pool))]``) and
+    classifying its reply (``classify_reply``) under the current ``leg``.
+    After :meth:`killed`, a reply stamped ``X-Scatter-Degraded`` must be
+    the oracle of worker0's shard alone."""
+
+    def __init__(self, url: str, pool, baseline, mats, seed: int) -> None:
+        import threading
+        self.url, self.pool, self.baseline = url, pool, baseline
+        self.mats, self.seed = mats, seed
+        self.leg = "poison"
+        self.counts: dict = {}
+        self.lock = threading.Lock()
+        self.stop = threading.Event()
+        self.errors: list = []
+        self.kill_t = None
+        self.first_stamped_s = None
+        self.degraded: dict = {}      # leg -> the first few stamps
+        self.threads = [threading.Thread(target=self.client, args=(c,),
+                                         daemon=True)
+                        for c in range(CHAOS_CLIENTS)]
+
+    def start(self) -> "ChaosLoad":
+        for t in self.threads:
+            t.start()
+        return self
+
+    def killed(self) -> None:
+        """From now on (called just before the kill) a stamped reply is
+        held to worker0's shard alone."""
+        self.kill_t = time.perf_counter()
+
+    def client(self, cid: int) -> None:
+        import random
+        rng = random.Random(self.seed * 1000 + cid)
+        while not self.stop.is_set():
+            q = self.pool[int(rng.random() ** 2 * len(self.pool))]
+            leg = self.leg
+            try:
+                st, hd, got = http_post_full(self.url + "/leader/start",
+                                             {"query": q})
+            except OSError:
+                st, hd, got = None, {}, None
+            # a reply that lands after the kill is held to worker0's
+            # shard alone, whenever its request was sent
+            kill_t = self.kill_t
+            partial = None if kill_t is None else \
+                shard_partial(self.mats, q, (0,))
+            try:
+                v = classify_reply(st, hd, got, self.baseline[q], partial)
+            except SystemExit as e:
+                self.errors.append(f"{leg}: {q!r}: {e}")
+                return
+            with self.lock:
+                c = self.counts.setdefault(leg, dict.fromkeys(VERDICTS, 0))
+                c[v] += 1
+                if v == "degraded" and len(self.degraded.setdefault(
+                        leg, [])) < 3:
+                    self.degraded[leg].append({
+                        h: hd.get(h) for h in ("X-Compute-Degraded",
+                                               "X-Scatter-Degraded")})
+                if (kill_t is not None and self.first_stamped_s is None
+                        and hd.get("X-Scatter-Degraded")):
+                    self.first_stamped_s = time.perf_counter() - kill_t
+
+    def outcomes(self, leg: str) -> dict:
+        with self.lock:
+            return dict(self.counts.get(leg, dict.fromkeys(VERDICTS, 0)))
+
+    def join(self) -> None:
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=CHAOS_WAIT_S)
+
+
+def chaos_phase(fleet, url: dict, mats, seed: int, sent, docs) -> dict:
+    """Phase 13 on phase 7's fleet (after its gates, before its SIGTERM
+    teardown): the compute chaos job adapted to two workers, then a kill
+    -9 of worker1 mid-load. ``mats`` is phase 7's per-shard oracle,
+    ``sent`` the queries phase 7 sent, ``docs`` the documents it
+    uploaded (each worker's share joins its shard's oracle)."""
+    from tfidf_tpu_torch.cluster.quarantine import poison_fingerprint
+    t_phase = time.perf_counter()
+    leader = url["leader"]
+    workers = ("worker0", "worker1")
+
+    def metrics(tag):
+        return http_json(url[tag] + "/api/metrics")[0]
+
+    def v4():
+        return {w: int(metrics(w).get("ell_kernel_launches_v4", 0))
+                for w in workers}
+
+    def compute(tag):
+        return http_json(url[tag] + "/api/health")[0]["compute"]
+
+    def nemesis(tag, body):
+        http_json(url[tag] + "/api/device-nemesis", body)
+
+    def send(q):
+        return http_post_full(leader + "/leader/start", {"query": q})
+
+    def wait(what, pred):
+        t0 = time.perf_counter()
+        fleet.wait(what, pred, timeout=CHAOS_WAIT_S)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    held = [set(http_json(url[w] + "/worker/names")[0]["names"])
+            for w in workers]
+    mats = with_uploads(mats, docs, held)
+    oracle_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 13)
+    seen, pool = set(sent), []
+    while len(pool) < CHAOS_POOL:
+        for q in make_queries(rng, NS_VOCAB, CHAOS_POOL):
+            if q not in seen and len(pool) < CHAOS_POOL:
+                seen.add(q)
+                pool.append(q)
+    poison = poison_terms(mats)
+    pool.append(poison)
+    fp = poison_fingerprint(poison, "sparse")
+    for w in workers:
+        if not compute(w).get("fallback_available"):
+            raise SystemExit(f"chaos: {w} has no host mirror: {compute(w)}")
+    res = {"oracle_uploads_s": oracle_s,
+           "config": {"pool": len(pool), "poison": poison,
+                      "clients": CHAOS_CLIENTS, "sick_window_s":
+                      CHAOS_SICK_S, "kill_window_s": CHAOS_KILL_S},
+           "launches_v4": {}}
+
+    # ---- leg 1: the baseline, every pool query exact and unstamped ----
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    launches = start = v4()
+    with ThreadPoolExecutor(CHAOS_CLIENTS) as ex:
+        replies = list(ex.map(send, pool))
+    for q, (st, hd, got) in zip(pool, replies):
+        stamps = [h for h in ("X-Compute-Degraded", "X-Scatter-Degraded")
+                  if hd.get(h)]
+        if st != 200 or stamps or not got:
+            raise SystemExit(f"chaos baseline: {q!r} -> {st} {stamps} {got}")
+    baseline = {q: r[2] for q, r in zip(pool, replies)}
+
+    def held(i):
+        return hold_shards(baseline[pool[i]], shard_scores(mats, pool[i]),
+                           f"chaos baseline q{i}")[0]
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        swaps = list(ex.map(held, range(len(pool))))
+    after = v4()
+    res["launches_v4"]["baseline"] = {w: after[w] - launches[w]
+                                      for w in workers}
+    res["baseline"] = {"queries": len(pool), "near_tie_swaps": sum(swaps),
+                       "seconds": time.perf_counter() - t0}
+    log(f"[chaos] baseline: {len(pool)} queries exact and unstamped, held "
+        f"to the per-shard oracle ({sum(swaps)} near-tie swaps) in "
+        f"{res['baseline']['seconds']:.1f}s; v4 launches "
+        f"{res['launches_v4']['baseline']}")
+
+    load = ChaosLoad(leader, pool, baseline, mats, seed).start()
+    try:
+        # ---- leg 2: a poison query quarantined on exactly two replicas
+        launches = v4()
+        for w in workers:
+            nemesis(w, {"script": "score_ell:poison:1.0:min_uniq="
+                                  f"{CHAOS_POISON_UNIQ}"})
+        res["to_quarantine_s"] = wait("the poison quarantine", lambda: (
+            lambda r: r[0] == 422
+            and r[1].get("X-Poison-Quarantined") == fp)(send(poison)))
+        snap = http_json(leader + "/api/quarantine")[0]
+        (entry,) = [e for e in snap["quarantined"]
+                    if e["fingerprint"] == fp]
+        if sorted(entry["replicas"]) != sorted(url[w] for w in workers):
+            raise SystemExit(f"chaos: quarantined on {entry['replicas']}, "
+                             f"not on exactly both workers")
+        st, hd, got = send(poison)
+        if st != 422 or hd.get("X-Poison-Quarantined") != fp \
+                or got.get("fingerprint") != fp:
+            raise SystemExit(f"chaos: the next poison send got {st} {got}")
+        probes = pool[:CHAOS_PROBES]
+        with ThreadPoolExecutor(CHAOS_CLIENTS) as ex:
+            for q, (st, hd, got) in zip(probes, ex.map(send, probes)):
+                if classify_reply(st, hd, got, baseline[q]) != "exact" \
+                        or hd.get("X-Compute-Degraded"):
+                    raise SystemExit(f"chaos: innocent {q!r} under the "
+                                     f"poison rule -> {st} {hd}")
+        states = {w: compute(w)["state"] for w in workers}
+        if set(states.values()) != {"healthy"}:
+            raise SystemExit(f"chaos: compute states under poison {states}")
+        for w in workers:
+            nemesis(w, {"clear": True})
+        cleared = http_json(leader + "/api/quarantine", {})[0]
+        st, hd, got = send(poison)
+        if cleared.get("cleared") != 1 or st != 200 \
+                or got != baseline[poison]:
+            raise SystemExit(f"chaos: after clearing {cleared}, the poison "
+                             f"query -> {st} {got}")
+        after = v4()
+        res["launches_v4"]["poison"] = {w: after[w] - launches[w]
+                                        for w in workers}
+        if not all(res["launches_v4"]["poison"].values()):
+            raise SystemExit(f"chaos: a worker launched no kernel under the "
+                             f"poison rule: {res['launches_v4']['poison']}")
+        res["poison"] = {"replicas": len(entry["replicas"]),
+                         "outcomes": load.outcomes("poison")}
+        log(f"[chaos] poison: quarantined on both workers "
+            f"{res['to_quarantine_s']:.2f}s after arming, then 422; "
+            f"{len(probes)} innocent queries exact on the device, both "
+            f"healthy; cleared, admitted with its baseline reply; "
+            f"outcomes {res['poison']['outcomes']}, v4 launches "
+            f"{res['launches_v4']['poison']}")
+
+        # ---- leg 3: worker0 sick (host mirror), worker1 wedged ----
+        load.leg = "sick"
+        launches = v4()
+        nemesis("worker0", {"script": "*:oom"})
+        nemesis("worker1", {"script": "*:delay:1.0:delay_s=0.2"})
+        res["to_sick_s"] = wait("worker0 sick", lambda: compute(
+            "worker0")["state"] == "sick")
+        at_sick = v4()
+        time.sleep(CHAOS_SICK_S)
+        sick_end = v4()
+        res["sick"] = {"outcomes": load.outcomes("sick"),
+                       "fallback_served": metrics("worker0").get(
+                           "compute_fallback_served", 0)}
+        load.leg = "healing"
+        t_clear = time.perf_counter()
+        for w in workers:
+            nemesis(w, {"clear": True})
+        fleet.wait("worker0 healed", lambda: compute(
+            "worker0")["state"] == "healthy", timeout=CHAOS_WAIT_S)
+        res["to_healed_s"] = time.perf_counter() - t_clear
+
+        def recovered():
+            st, hd, got = send(pool[0])
+            return (st == 200 and not hd.get("X-Compute-Degraded")
+                    and not hd.get("X-Scatter-Degraded")
+                    and got == baseline[pool[0]])
+        fleet.wait("unstamped baseline replies", recovered,
+                   timeout=CHAOS_WAIT_S)
+        res["to_converged_s"] = time.perf_counter() - t_clear
+        healed = wait("worker0's kernel launches rising", lambda:
+                      v4()["worker0"] > sick_end["worker0"])
+        after = v4()
+        res["launches_v4"]["sick"] = {
+            "worker0_while_sick": sick_end["worker0"] - at_sick["worker0"],
+            "worker1_while_wedged": sick_end["worker1"] - at_sick["worker1"],
+            "worker0_before_sick": at_sick["worker0"] - launches["worker0"],
+            "worker0_after_healing": after["worker0"] - sick_end["worker0"]}
+        c = res["sick"]["outcomes"]
+        if c["compute_degraded"] < 1:
+            raise SystemExit(f"chaos: no compute_degraded reply while "
+                             f"worker0 was sick: {c}")
+        if res["launches_v4"]["sick"]["worker0_while_sick"]:
+            raise SystemExit(f"chaos: worker0 launched the kernel while "
+                             f"sick: {res['launches_v4']['sick']}")
+        log(f"[chaos] sick: worker0 sick {res['to_sick_s']:.2f}s after "
+            f"arming; {CHAOS_SICK_S:.0f}s window outcomes {c} "
+            f"({c['compute_degraded'] / CHAOS_SICK_S:.2f} compute-degraded "
+            f"q/s), fallback served {res['sick']['fallback_served']}; "
+            f"healed {res['to_healed_s']:.2f}s after clearing, unstamped "
+            f"baseline replies at {res['to_converged_s']:.2f}s, v4 rising "
+            f"{healed:.2f}s later; v4 launches {res['launches_v4']['sick']}")
+
+        # ---- leg 4: kill -9 worker1 mid-load ----
+        load.leg = "kill"
+        launches = v4()
+        mem_before = card_memory_mib()
+        load.killed()
+        fleet.kill("worker1")
+        fleet.wait("the first stamped reply after the kill",
+                   lambda: load.first_stamped_s is not None,
+                   timeout=CHAOS_WAIT_S)
+
+        def worker1_out():
+            m = metrics("leader")
+            return (m.get("breaker_open_workers", 0) >= 1
+                    or url["worker1"] not in http_json(
+                        leader + "/api/services")[0])
+        res["to_breaker_s"] = wait("the leader's breaker or registry "
+                                   "dropping worker1", worker1_out)
+        before = load.outcomes("kill")
+        time.sleep(CHAOS_KILL_S)
+        window = {k: v - before[k] for k, v in load.outcomes(
+            "kill").items()}
+        mem_after = card_memory_mib()
+        end_w0 = int(metrics("worker0").get("ell_kernel_launches_v4", 0))
+    finally:
+        load.join()
+    if load.errors:
+        raise SystemExit(f"chaos: {load.errors[:3]}")
+    res["outcomes"] = {leg: load.outcomes(leg) for leg in
+                       ("poison", "sick", "healing", "kill")}
+    res["degraded_stamps"] = load.degraded
+    res["kill"] = {"window_outcomes": window,
+                   "degraded_qps": (sum(window.values())
+                                    - window["failed"]) / CHAOS_KILL_S,
+                   "to_first_stamped_s": load.first_stamped_s,
+                   "card_memory_used_mib": {"before": mem_before,
+                                            "after": mem_after}}
+    res["launches_v4"]["kill"] = {"worker0": end_w0 - launches["worker0"]}
+    if not res["launches_v4"]["kill"]["worker0"]:
+        raise SystemExit(f"chaos: worker0 launched no kernel after the "
+                         f"kill: {res['kill']}, {res['launches_v4']}")
+    res["launches"] = {"v4": end_w0 - start["worker0"] + launches["worker1"]
+                       - start["worker1"], "v3": 0}
+    log(f"[chaos] kill -9 worker1: first X-Scatter-Degraded reply "
+        f"{load.first_stamped_s:.2f}s after, breaker or registry "
+        f"{res['to_breaker_s']:.2f}s; {CHAOS_KILL_S:.0f}s window "
+        f"{window}: {res['kill']['degraded_qps']:.2f} q/s, every stamped "
+        f"reply worker0's per-shard oracle; memory.used {mem_before} -> "
+        f"{mem_after} MiB; worker0 v4 launches "
+        f"{res['launches_v4']['kill']['worker0']}; outcomes by leg "
+        f"{res['outcomes']}; the first degraded stamps by leg "
+        f"{load.degraded}")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
 
 
 def fleet_phase(data, shards, seed: int, work: str, out_dir: str) -> dict:
@@ -3511,8 +4047,9 @@ def fleet_phase(data, shards, seed: int, work: str, out_dir: str) -> dict:
                              f"the leader's")
 
         t0 = time.perf_counter()
+        mats = sparse_mats(data["corpus"], shards)
         res["sparse_oracle"], s_swaps, s_top = fleet_sparse_oracle(
-            data["corpus"], shards, staged, sparse[:FLEET_STAGED])
+            data["corpus"], shards, staged, sparse[:FLEET_STAGED], mats)
         res["dense_oracle"], d_swaps, d_top = fleet_dense_oracle(
             data["rows"], staged, dense)
         res["hybrid_oracle"] = fleet_hybrid_check(
@@ -3582,6 +4119,11 @@ def fleet_phase(data, shards, seed: int, work: str, out_dir: str) -> dict:
         log(f"[fleet] every process alive; the card's memory.used (MiB) "
             f"{mem}; workers healthy, no fault, no fallback-served "
             f"request")
+        # ---- phase 13: chaos on this fleet, before its teardown ----
+        res["chaos"] = chaos_phase(fleet, url, mats, seed, queries, docs)
+        res["chaos"]["card"] = smi_query("--query-gpu=name,power.limit")
+        log(f"[chaos] phase 13 took {res['chaos']['seconds']:.1f}s on "
+            f"{res['chaos']['card']} W")
     finally:
         codes = fleet.stop()
         logs = os.path.join(out_dir, "fleet_logs")
@@ -3589,7 +4131,8 @@ def fleet_phase(data, shards, seed: int, work: str, out_dir: str) -> dict:
         for tag in fleet.procs:
             shutil.copy(os.path.join(root, f"{tag}.log"), logs)
     res["exit_codes"] = codes
-    if any(c != 0 for c in codes.values()):
+    # every process exits 0 on SIGTERM but the one phase 13 killed
+    if any(c != (-9 if t in fleet.killed else 0) for t, c in codes.items()):
         raise SystemExit(f"fleet: exit codes {codes}")
     log(f"[fleet] stopped by SIGTERM: {codes}")
     return res
@@ -3601,8 +4144,9 @@ def fleet_phase(data, shards, seed: int, work: str, out_dir: str) -> dict:
 
 BENCH_C1_CPU_BATCH = 64        # config 1's CPU baselines' batch (the
                                # bench's 512: its numpy loop took 42 s)
-BENCH_RT_DOCS = 10_000         # the realistic text's corpus (the bench's
-                               # 100,000: 124 s of the phase)
+BENCH_RT_DOCS = 5_000          # the realistic text's corpus (the bench's
+                               # 100,000: 124 s of the phase; 10,000 until
+                               # phase 13 joined the run)
 BENCH_CLUSTER_DOCS = 2_000     # both cluster configs' corpus (the bench's
                                # 100,000; phase 7 has the fleet at 1M docs)
 BENCH_CLUSTER_SHARE = 1_900    # bench_cluster_gpu's first upload (95%)
@@ -3918,6 +4462,7 @@ def main() -> int:
          "launches_bench": bench["launches"][a],
          "launches_modes": modes["launches"][a],
          "launches_witness": witness["launches"][a],
+         "launches_chaos": fleet["chaos"]["launches"][a],
          "max_abs_err": max(cases["max_abs_err"], kt["max_abs_err"],
                             mesh["ell"]["kernel"]["max_abs_err"],
                             bench["c5_kernel"]["max_abs_err"],

@@ -1,4 +1,5 @@
-"""Phase 7 of ``chip_smoke.py`` (the fleet) alone, on one card.
+"""Phase 7 of ``chip_smoke.py`` (the fleet, with phase 13's chaos on it)
+alone, on one card.
 
 Runs the fleet phase of this tree at the north star, and with
 ``--parent DIR`` also that of a second tree unpacked in DIR (for example
@@ -61,6 +62,11 @@ def summary_row(i: int, tree: str, res: dict, err, seconds: float) -> dict:
         row["upload"] = {x: res["upload"][x] for x in (
             "docs_per_s", "upload_to_all_read_s")}
     row["boot"] = res.get("worker_boot_to_serving_s")
+    if "chaos" in res:
+        row["chaos"] = {k: res["chaos"].get(k) for k in (
+            "seconds", "baseline", "to_quarantine_s", "to_sick_s",
+            "to_healed_s", "to_converged_s", "to_breaker_s", "outcomes",
+            "kill", "launches_v4", "degraded_stamps")}
     return row
 
 

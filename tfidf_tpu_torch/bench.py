@@ -563,7 +563,8 @@ def _http_get(url: str, timeout: float = 10.0) -> bytes:
         return r.read()
 
 
-def _wait_until(pred, timeout: float = 240.0) -> None:
+def _wait_until(pred, timeout: float = 240.0,
+                interval: float = 0.3) -> None:
     deadline = time.monotonic() + timeout
     last = None
     while time.monotonic() < deadline:
@@ -572,7 +573,7 @@ def _wait_until(pred, timeout: float = 240.0) -> None:
                 return
         except Exception as e:
             last = e
-        time.sleep(0.3)
+        time.sleep(interval)
     raise AssertionError(f"timeout; last={last!r}")
 
 

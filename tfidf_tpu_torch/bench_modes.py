@@ -124,50 +124,126 @@ def _ms(fn, dev, reps: int = 3, warm: bool = True) -> float:
 def _spawn(procs: list, env: dict, tmp: str, tag: str, args: list,
            extra_env: dict | None = None) -> subprocess.Popen:
     """One ``python -m tfidf_tpu_torch`` process, its stderr in
-    ``tmp/<tag>.log``."""
+    ``tmp/<tag>.log``; it runs in ``tmp``, so it imports only what the
+    environment's ``PYTHONPATH`` offers."""
+    os.makedirs(tmp, exist_ok=True)
     with open(os.path.join(tmp, f"{tag}.log"), "wb") as errf:
         p = subprocess.Popen(
             [sys.executable, "-m", "tfidf_tpu_torch", *args],
-            env=dict(env, **(extra_env or {})), stdout=subprocess.DEVNULL,
-            stderr=errf)
+            env=dict(env, **(extra_env or {})), cwd=tmp,
+            stdout=subprocess.DEVNULL, stderr=errf)
     procs.append(p)
     return p
 
 
-def _start_cluster(procs: list, env: dict, tmp: str):
+def _spawn_routers(procs: list, env: dict, tmp: str, tags: list,
+                   coord: int, extra_env: dict | None = None) -> list:
+    """One ``router`` a tag, all started together on free ports, each
+    answering ``/api/health``. A router that exits first because another
+    process took its port between ``_free_port`` and its bind is started
+    again on a fresh port; any other exit fails with its log. Returns
+    [(the process, its port)] in the order of ``tags``."""
+    def start(tag):
+        port = _free_port()
+        return _spawn(procs, env, tmp, tag,
+                      ["router", "--port", str(port), "--host",
+                       "127.0.0.1", "--coordinator", f"127.0.0.1:{coord}"],
+                      extra_env), port
+
+    def exited(tag, p) -> bool:
+        if p.poll() is None:
+            return False
+        with open(os.path.join(tmp, f"{tag}.log"), errors="replace") as f:
+            text = f.read()
+        if "address already in use" not in text.lower():
+            raise RuntimeError(f"[{tag}] router exited with "
+                               f"{p.returncode}: {text[-2000:]}")
+        return True
+
+    out = [start(tag) for tag in tags]
+    for _ in range(3):
+        _wait_until(lambda: all(p.poll() is not None or _http_get(
+            f"http://127.0.0.1:{port}/api/health") for p, port in out))
+        taken = [i for i, (tag, (p, _)) in enumerate(zip(tags, out))
+                 if exited(tag, p)]
+        if not taken:
+            return out
+        for i in taken:
+            out[i] = start(tags[i])
+    raise RuntimeError(f"routers {tags}: ports taken three times")
+
+
+def _serve_args(i: int, port: int, coord: int, tmp: str) -> list:
+    """``serve`` arguments of node ``i`` (0 the leader) under ``tmp``."""
+    return ["serve", "--port", str(port), "--host", "127.0.0.1",
+            "--coordinator-address", f"127.0.0.1:{coord}",
+            "--documents-path", f"{tmp}/n{i}/docs",
+            "--index-path", f"{tmp}/n{i}/index"]
+
+
+def _start_cluster(procs: list, env: dict, tmp: str, n_workers: int = 2,
+                   coord: int | None = None, ports: list | None = None,
+                   coord_args: tuple = (), timeout: float = 240.0):
     """A coordinator, then a leader (serving before the workers start, so
-    it wins the election), then two workers, started together. Returns
-    (the coordinator's port, the nodes' ports, their URLs)."""
-    coord = _free_port()
+    it wins the election), then ``n_workers`` workers, started together,
+    then the ready barrier (``_ready_barrier``). ``coord`` / ``ports``
+    reuse the ports of an earlier start (a restart on the same dirs);
+    ``coord_args`` go to the coordinator (``--data-dir``). Returns (the
+    coordinator's port, the nodes' ports, their URLs)."""
+    coord = coord or _free_port()
     _spawn(procs, env, tmp, "coordinator",
-           ["coordinator", "--listen", f"127.0.0.1:{coord}"])
+           ["coordinator", "--listen", f"127.0.0.1:{coord}", *coord_args])
     _wait_until(lambda: socket.create_connection(
-        ("127.0.0.1", coord), timeout=1).close() or True)
-    ports = [_free_port() for _ in range(3)]
+        ("127.0.0.1", coord), timeout=1).close() or True, timeout)
+    ports = ports or [_free_port() for _ in range(n_workers + 1)]
     urls = [f"http://127.0.0.1:{p}" for p in ports]
-
-    def serve(i):
-        _spawn(procs, env, tmp, f"node{i}",
-               ["serve", "--port", str(ports[i]), "--host", "127.0.0.1",
-                "--coordinator-address", f"127.0.0.1:{coord}",
-                "--documents-path", f"{tmp}/n{i}/docs",
-                "--index-path", f"{tmp}/n{i}/index"])
-
-    serve(0)
+    _spawn(procs, env, tmp, "node0", _serve_args(0, ports[0], coord, tmp))
     _wait_until(lambda: _http_get(urls[0] + "/api/status")
-                == b"I am the leader")
-    serve(1)
-    serve(2)
-    for u in urls[1:]:
-        _wait_until(lambda u=u: _http_get(u + "/api/status"))
-    _wait_until(lambda: len(json.loads(
-        _http_get(urls[0] + "/api/services"))) == 2)
+                == b"I am the leader", timeout)
+    for i in range(1, len(ports)):
+        _spawn(procs, env, tmp, f"node{i}",
+               _serve_args(i, ports[i], coord, tmp))
+    _ready_barrier(urls, timeout)
     return coord, ports, urls
 
 
-def _upload(client: _KeepAlive, leader_hp, texts, n_docs: int) -> float:
-    """``/leader/upload-batch`` in groups of 500 from 8 threads; the
-    seconds it took."""
+def _ready_barrier(urls: list, timeout: float = 240.0) -> None:
+    """Before any upload: every worker answers ``/worker/index-size`` (the
+    poll the leader routes new names by: a worker whose poll fails during
+    an upload gets none of it) and ``/api/health``, and the leader lists
+    every worker."""
+    for u in urls[1:]:
+        _wait_until(lambda u=u: int(_http_get(u + "/worker/index-size"))
+                    >= 0 and json.loads(_http_get(u + "/api/health"))["ok"],
+                    timeout)
+    _wait_until(lambda: len(json.loads(
+        _http_get(urls[0] + "/api/services"))) == len(urls) - 1, timeout)
+
+
+def _hold_index_bytes(workers: list, timeout: float = 60.0) -> list[int]:
+    """After an upload, before any measured round: every worker holds
+    index bytes. Returns each worker's bytes; raises naming the empty
+    ones (the leader routed the whole upload past them)."""
+    sizes: list[int] = []
+
+    def held():
+        sizes[:] = [int(_http_get(u + "/worker/index-size"))
+                    for u in workers]
+        return all(sizes)
+    try:
+        _wait_until(held, timeout)
+    except AssertionError:
+        raise AssertionError(
+            f"after the upload a worker holds no index bytes: "
+            f"{dict(zip(workers, sizes))}") from None
+    return sizes
+
+
+def _upload(client: _KeepAlive, leader_hp, texts, n_docs: int,
+            workers: list) -> float:
+    """``/leader/upload-batch`` in groups of 500 from 8 threads, then
+    every one of ``workers`` must hold index bytes; the seconds the
+    upload took."""
     groups = [[{"name": f"d{i}.txt", "text": texts[i]}
                for i in range(lo, min(lo + 500, n_docs))]
               for lo in range(0, n_docs, 500)]
@@ -175,7 +251,9 @@ def _upload(client: _KeepAlive, leader_hp, texts, n_docs: int) -> float:
     with concurrent.futures.ThreadPoolExecutor(8) as ex:
         list(ex.map(lambda g: client.post(leader_hp, "/leader/upload-batch",
                                           json.dumps(g).encode()), groups))
-    return time.perf_counter() - t0
+    took = time.perf_counter() - t0
+    _hold_index_bytes(workers)
+    return took
 
 
 def _fleet_env(device) -> tuple[dict, str]:
@@ -342,16 +420,12 @@ def bench_overload(rng, autopilot: bool = False,
     try:
         coord, ports, urls = _start_cluster(procs, env, tmp)
         leader_hp = ("127.0.0.1", ports[0])
-        rport = _free_port()
-        _spawn(procs, env, tmp, "router",
-               ["router", "--port", str(rport), "--host", "127.0.0.1",
-                "--coordinator", f"127.0.0.1:{coord}"])
+        ((_, rport),) = _spawn_routers(procs, env, tmp, ["router"], coord)
         front = f"http://127.0.0.1:{rport}"
         front_hp = ("127.0.0.1", rport)
-        _wait_until(lambda: _http_get(front + "/api/health"))
 
         t0 = time.perf_counter()
-        _upload(client, leader_hp, texts, n_docs)
+        _upload(client, leader_hp, texts, n_docs, urls[1:])
         log(f"[ov] uploaded {n_docs} docs in "
             f"{time.perf_counter()-t0:.0f}s")
         # the router's placement view must cover the corpus before the
@@ -653,20 +727,16 @@ def bench_replay(rng, *, n_docs: int = R10_DOCS, vocab: int = R10_VOCAB,
         leader_hp = ("127.0.0.1", ports[0])
 
         def mk_router(capture):
-            rp = _free_port()
-            p = _spawn(procs, env, tmp,
-                       "router_capture" if capture else "router_replay",
-                       ["router", "--port", str(rp), "--host",
-                        "127.0.0.1", "--coordinator", f"127.0.0.1:{coord}"],
-                       extra_env=({"TFIDF_REPLAY_CAPTURE_PATH": cap_path}
-                                  if capture else None))
-            _wait_until(lambda: _http_get(
-                f"http://127.0.0.1:{rp}/api/health"))
+            ((p, rp),) = _spawn_routers(
+                procs, env, tmp,
+                ["router_capture" if capture else "router_replay"], coord,
+                extra_env=({"TFIDF_REPLAY_CAPTURE_PATH": cap_path}
+                           if capture else None))
             return p, ("127.0.0.1", rp)
 
         cap_proc, front_hp = mk_router(capture=True)
         t1 = time.perf_counter()
-        _upload(client, leader_hp, texts, n_docs)
+        _upload(client, leader_hp, texts, n_docs, urls[1:])
         log(f"[r10] uploaded {n_docs} docs in "
             f"{time.perf_counter()-t1:.0f}s")
         _wait_until(lambda: client.post_full(
@@ -998,7 +1068,7 @@ def bench_routers(rng, corpus: tuple | None = None, *,
     try:
         coord, ports, urls = _start_cluster(procs, env, tmp)
         leader_hp = ("127.0.0.1", ports[0])
-        ingest_s = _upload(client, leader_hp, texts, n_docs)
+        ingest_s = _upload(client, leader_hp, texts, n_docs, urls[1:])
         # the ingest path fsyncs before it acknowledges (group commit)
         ingest_dps = round(n_docs / ingest_s, 1)
         log(f"[r7] uploaded {n_docs} docs in {ingest_s:.0f}s "
@@ -1006,12 +1076,11 @@ def bench_routers(rng, corpus: tuple | None = None, *,
 
         def run_phase(n_routers: int) -> dict:
             nonlocal card
-            rports = [_free_port() for _ in range(n_routers)]
+            rprocs, rports = map(list, zip(*_spawn_routers(
+                procs, env, tmp,
+                [f"router{n_routers}_{j}" for j in range(n_routers)],
+                coord)))
             rurls = [f"http://127.0.0.1:{p}" for p in rports]
-            rprocs = [_spawn(procs, env, tmp, f"router{n_routers}_{j}", [
-                "router", "--coordinator", f"127.0.0.1:{coord}",
-                "--host", "127.0.0.1", "--port", str(p)])
-                for j, p in enumerate(rports)]
             for u in rurls:
                 _wait_until(lambda u=u: json.loads(_http_get(
                     u + "/api/router"))["placement"]["docs"] == n_docs)
