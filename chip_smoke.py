@@ -7,7 +7,8 @@ Needs one CUDA card; exits non-zero without one, and without the package
 beside it. Phases (any failure fails the run):
 
 1. device: the card's name and power limit; build every CUDA kernel from
-   ``tfidf_tpu_torch/csrc`` (one nvcc per source, started together);
+   ``tfidf_tpu_torch/csrc`` (one nvcc per source, started together, while
+   phase 3's corpus is drawn on the host);
 2. kernels against their plain PyTorch versions on the card, over a case
    matrix made from ``--seed``: variants v3 == v4 == plain, bitwise, and
    identical top-10, each variant also writing into a wider tensor at an
@@ -90,7 +91,9 @@ beside it. Phases (any failure fails the run):
    CUDA context: this one, the leader, the workers) and its
    ``utilization.gpu`` (10 Hz) over each window.
 8. streaming segments and tiering at BASELINE config 4's shape (runs after
-   phase 6, before the fleet): (a) phase 3's corpus streamed through
+   phase 6, before the fleet; config 4's named size, 8.8M passages, is
+   ``probe_msmarco_torch.py``'s): (a) the first 500,000 docs of phase 3's
+   corpus (``ST_DOCS``; 1M until the probe) streamed through
    ``add_document_arrays`` into ``index_mode="segments"`` (the default
    ``max_segments``, ``merge_workers`` and ``sync_merge_nnz``, batch 64,
    the dense plane off, the 500k vocabulary registered first), a commit
@@ -140,9 +143,10 @@ beside it. Phases (any failure fails the run):
    eligible block, v3 and v4 == plain bitwise, with the kernel / plain /
    ``torch.sparse.mm`` / bound ms; then ``bench_cluster`` and
    ``bench_cluster_gpu`` as ``python -m tfidf_tpu_torch`` processes on
-   the card at 2,000 docs (``BENCH_*`` sets each cut). The artifact goes through ``_emit_validated``
-   into ``--work`` and must re-parse with every ``parity_checked`` true
-   and no kernel build inside a timed window.
+   the card at 2,000 docs (``BENCH_*`` sets each cut). The artifact goes
+   through ``_emit_validated`` into ``--work`` and must re-parse with
+   every ``parity_checked`` true and no kernel build inside a timed
+   window.
 11. the root ``bench.py``'s other modes (last): each of
    ``tfidf_tpu_torch.bench_modes``' mains (compute, kernel, hybrid, tier,
    overload, routers, replay) at a cut depth (``MODE_CUTS``), every gate
@@ -150,7 +154,8 @@ beside it. Phases (any failure fails the run):
    ``_emit_validated`` into ``--work``; the fleet modes' serving nodes on
    the card and, by ``nvidia-smi``'s count, nothing else of theirs; the
    ELL launches counted over the modes (this process's and the fleet
-   workers').
+   workers'); this process's heap read first (``heap_stalls``) and its
+   stalls in each overload window recorded.
 12. the device witness (right after phase 3d, on phase 3's engine: the
    1M-doc north star, ``Config()`` defaults, kernel v4, batch 512,
    top-10): ``tfidf_tpu_torch/tools/graftcheck/device_witness.py``
@@ -713,11 +718,12 @@ def _hold_query(i, s, got, row_of, index_of, swaps) -> None:
 
 
 def drive(engine, queries, chunks_arrays) -> tuple:
-    """The served run: one search_batch over NS_BATCHES chunks and one
-    search_batch_arrays chunk. Returns (hits, arrays, seconds)."""
+    """The served run: one search_batch over ``queries`` (NS_BATCHES
+    chunks on the main path) and one search_batch_arrays chunk. Returns
+    (hits, arrays, seconds)."""
     sync()
     t0 = time.perf_counter()
-    hits = engine.search_batch(queries[:NS_BATCHES * NS_BATCH], k=TOP_K)
+    hits = engine.search_batch(queries, k=TOP_K)
     arrays = engine.search_batch_arrays(chunks_arrays, k=TOP_K)
     sync()
     return hits, arrays, time.perf_counter() - t0
@@ -781,8 +787,14 @@ def phase_breakdown(engine, queries) -> tuple:
     t.append(time.perf_counter())
     names = ("vectorize", "score", "topk", "fetch")
     ms = {n: (t[i + 1] - t[i]) * 1e3 for i, n in enumerate(names)}
-
-    out = torch.empty_like(scores)
+    # the served top-k of this batch's own f32 scores, held to numpy; the
+    # scores go before the split allocates its own [B, doc_cap] tensor
+    tied = check_topk(scores[:TOPK_ROWS].cpu().numpy(), packed[:TOPK_ROWS],
+                      snap.num_docs, TOP_K, "main-path topk")
+    log(f"[main] top-{TOP_K} of {TOPK_ROWS} served rows identical to numpy "
+        f"lexsort over the engine's f32 scores, {tied} tied ranks")
+    out = torch.empty(scores.shape, dtype=scores.dtype, device=scores.device)
+    del scores
     sync()
     t0 = time.perf_counter()
     slot_of, qc_ext = _compile_queries(qb, snap.df.shape[0])
@@ -797,11 +809,6 @@ def phase_breakdown(engine, queries) -> tuple:
     ms["score.compile"] = (t1 - t0) * 1e3
     ms["score.kernel"] = (t2 - t1) * 1e3
     ms["score.rest"] = ms["score"] - ms["score.compile"] - ms["score.kernel"]
-    # the served top-k of this batch's own f32 scores, held to numpy
-    tied = check_topk(scores[:TOPK_ROWS].cpu().numpy(), packed[:TOPK_ROWS],
-                      snap.num_docs, TOP_K, "main-path topk")
-    log(f"[main] top-{TOP_K} of {TOPK_ROWS} served rows identical to numpy "
-        f"lexsort over the engine's f32 scores, {tied} tied ranks")
     return ms, qb, tied
 
 
@@ -835,30 +842,31 @@ def vectorize_split(engine, queries) -> dict:
             "dict_lookup_us_per_term": (t6 - t5) / len(terms) * 1e6}
 
 
-def main_path_kernel_times(engine, qb) -> dict:
-    """Per-batch device times over the main path's own blocks and batch:
-    every eligible block through each variant, straight into one
-    ``[B, doc_cap]`` real-doc tensor at its row offset; the plain version
-    and one library call (torch.sparse.mm of the block as CSR); the
-    bound. Checks first, for each variant, that ``score_ell_impl``'s
-    real-doc scores equal the plain blocks concatenated and gathered by
-    ``_rearrange_to_real`` (the reference's rearrange), bit for bit."""
-    from tfidf_tpu_torch.ops import ell as E
+def kernel_operands(engine, qb) -> tuple:
+    """(snapshot, slot_of, qc_t, the eligible blocks) of one batch ``qb``
+    on the engine's committed snapshot."""
     from tfidf_tpu_torch.ops.scoring import _compile_queries
     snap = engine.index.snapshot
-    vocab_cap, doc_cap = snap.df.shape[0], snap.doc_len.shape[0]
-    slot_of, qc_ext = _compile_queries(qb, vocab_cap)
+    slot_of, qc_ext = _compile_queries(qb, snap.df.shape[0])
     qc_t = qc_ext.T.contiguous()
-    u1, B = qc_t.shape
-    blocks = main_path_blocks(snap, B, u1 - 1)
+    return snap, slot_of, qc_t, main_path_blocks(snap, qc_t.shape[1],
+                                                 qc_t.shape[0] - 1)
 
+
+def check_rearrange(engine, qb) -> None:
+    """For each variant, ``score_ell_impl``'s real-doc scores of batch
+    ``qb`` equal the plain blocks concatenated and gathered by
+    ``_rearrange_to_real`` (the reference's rearrange), bit for bit."""
+    from tfidf_tpu_torch.ops import ell as E
+    snap, slot_of, qc_t, blocks = kernel_operands(engine, qb)
+    vocab_cap, doc_cap = snap.df.shape[0], snap.doc_len.shape[0]
     index = torch.from_numpy(E.real_index(
         [i.shape[0] for i in snap.ell_impacts], snap.ell_live,
         doc_cap)).cuda()
     ref = E._rearrange_to_real(
         [E.score_block_plain(it, tt, slot_of, qc_t, n) for it, tt, n in
          zip(snap.ell_impacts_t, snap.ell_terms_t, snap.ell_live)],
-        index, B, qc_t.device)
+        index, qc_t.shape[1], qc_t.device)
     for a in E.A_BUILD_VARIANTS:
         got = E.score_ell_impl(snap.ell_impacts, snap.ell_terms,
                                snap.ell_impacts_t, snap.ell_terms_t,
@@ -872,7 +880,19 @@ def main_path_kernel_times(engine, qb) -> dict:
                              f"{float((got - ref).abs().max())}; blocks "
                              f"(shape, row0) that differ: {bad})")
         del got
-    del ref, index
+
+
+def main_path_kernel_times(engine, qb) -> dict:
+    """Per-batch device times over the main path's own blocks and batch:
+    every eligible block through each variant, straight into one
+    ``[B, doc_cap]`` real-doc tensor at its row offset; the plain version
+    and one library call (torch.sparse.mm of the block as CSR); the
+    bound. The variants are held to the plain version apart from this
+    (:func:`check_rearrange`)."""
+    from tfidf_tpu_torch.ops import ell as E
+    snap, slot_of, qc_t, blocks = kernel_operands(engine, qb)
+    doc_cap = snap.doc_len.shape[0]
+    u1, B = qc_t.shape
 
     res = {"blocks": len(blocks), "u_cap": u1 - 1, "max_abs_err": 0.0,
            "plans": [E.kernel_plan(u1, B, it.shape[0])
@@ -918,27 +938,44 @@ def main_path_kernel_times(engine, qb) -> dict:
             reps=5)
     res["v4_ms_by_queries"][B] = res["v4_ms"]
     del out
-    res["plain_ms"] = cuda_ms(
-        lambda: [E.score_block_plain(it, tt, slot_of, qc_t, n)
-                 for it, tt, n, _ in blocks], reps=2)
+    # one block's output alive at a time (a whole batch's would not fit
+    # beside the postings at config 4's named size)
+    def plain_all():
+        for it, tt, n, _ in blocks:
+            E.score_block_plain(it, tt, slot_of, qc_t, n)
+
+    res["plain_ms"] = cuda_ms(plain_all, reps=2)
     mats = [library_operand(it, tt, slot_of, u1, n)
             for it, tt, n, _ in blocks]
-    res["library_ms"] = cuda_ms(
-        lambda: [torch.sparse.mm(A, qc_t) for A in mats], reps=5)
+
+    def library_all():
+        for A in mats:
+            torch.sparse.mm(A, qc_t)
+
+    res["library_ms"] = cuda_ms(library_all, reps=5)
     del mats
     return res
 
 
-def main_path(seed: int, n_docs: int) -> dict:
-    from tfidf_tpu_torch.engine.engine import Engine
-    from tfidf_tpu_torch.ops import ell as E
-    from tfidf_tpu_torch.utils.config import Config
+def draw_corpus(seed: int, n_docs: int) -> tuple:
+    """(the generator, phase 3's corpus drawn from it, seconds); the
+    generator goes on to draw phase 3's queries."""
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
     corpus = make_doc_arrays(rng, n_docs, NS_VOCAB, NS_AVG_LEN)
+    return rng, corpus, time.perf_counter() - t0
+
+
+def main_path(seed: int, drawn: tuple) -> dict:
+    """Phase 3 over :func:`draw_corpus`'s draw (made while the kernels
+    built)."""
+    from tfidf_tpu_torch.engine.engine import Engine
+    from tfidf_tpu_torch.ops import ell as E
+    from tfidf_tpu_torch.utils.config import Config
+    rng, corpus, gen_s = drawn
     offsets, ids, tfs, lengths = corpus
-    log(f"[main] corpus {n_docs} docs nnz={ids.shape[0]} in "
-        f"{time.perf_counter() - t0:.1f}s")
+    n_docs = offsets.shape[0] - 1
+    log(f"[main] corpus {n_docs} docs nnz={ids.shape[0]} in {gen_s:.1f}s")
     # compute-plane knobs for phase 5: sick after 3 faults, no probe
     # until the phase shortens the interval, an OOM ladder down to 2; the
     # dense plane at the Config defaults
@@ -1034,6 +1071,7 @@ def main_path(seed: int, n_docs: int) -> dict:
     log(f"[main] per-phase ms (one batch, synchronized): {breakdown}")
     vsplit = vectorize_split(engine, extra)
     log(f"[main] vectorize split (host): {vsplit}")
+    check_rearrange(engine, qb)
     ktimes = main_path_kernel_times(engine, qb)
     log(f"[main] per-batch kernel times: {ktimes}")
     check_clean(engine, "main path")
@@ -1964,6 +2002,9 @@ def durable_phase(seed: int, work: str) -> dict:
 # phase 8: streaming segments and tiering at config 4's shape
 # --------------------------------------------------------------------------
 
+ST_DOCS = 500_000              # phase 3's first docs streamed (1M until
+                               # the 8.8M-passage probe took config 4's
+                               # scale, probe_msmarco_torch.py)
 ST_COMMIT_EVERY = 10_000       # bench.py's config 4 shape: commit per 10k
 ST_BATCH = 64                  # bench.py's config 4 query batch
 ST_QUERIES = 512               # phase 3's queries served in phase 8
@@ -1985,10 +2026,12 @@ def _gather_docs(corpus, rows: np.ndarray):
             lengths[rows])
 
 
-def _concat_corpora(a, b):
-    return (np.concatenate([a[0], b[0][1:] + a[0][-1]]),
-            np.concatenate([a[1], b[1]]), np.concatenate([a[2], b[2]]),
-            np.concatenate([a[3], b[3]]))
+def _concat_corpora(*parts):
+    """One corpus of ``parts`` in order (offsets shifted, one copy)."""
+    base = np.cumsum([0] + [int(p[0][-1]) for p in parts[:-1]])
+    return (np.concatenate([parts[0][0][:1]] + [p[0][1:] + b for p, b in
+                                                zip(parts, base)]),
+            *(np.concatenate([p[i] for p in parts]) for i in (1, 2, 3)))
 
 
 def _segment_stats(segments, vocab: int):
@@ -2111,10 +2154,16 @@ def serve_segments(engine, queries) -> tuple:
                           "search_batch_arrays": len(queries) / (t2 - t1)}
 
 
-def stream_phase(data, seed: int) -> tuple:
-    """Phase 8a: config 4's streaming build of phase 3's 1M-doc corpus
-    into a segments-mode engine on the card, a quiesce, 1% deletes and 1%
-    upserts, then 512 queries held to a scipy oracle over the live docs."""
+def stream_phase(data, seed: int, *, commit_every: int = ST_COMMIT_EVERY,
+                 vocab: int = NS_VOCAB, avg_len: int = NS_AVG_LEN,
+                 device=None) -> tuple:
+    """Phase 8a: config 4's streaming build of ``data["corpus"]`` (drawn
+    over ``vocab`` terms, ``avg_len`` long on average) into a
+    segments-mode engine on the card (``device`` only for the tests), a
+    commit every ``commit_every`` docs, a quiesce, 1% deletes and 1%
+    upserts, then ``ST_QUERIES`` queries held to a scipy oracle over the
+    live docs. ``probe_msmarco_torch.py`` runs it at config 4's named
+    size."""
     from tfidf_tpu_torch.engine.engine import Engine
     from tfidf_tpu_torch.utils.config import Config
     corpus = data["corpus"]
@@ -2122,12 +2171,12 @@ def stream_phase(data, seed: int) -> tuple:
     n_docs = offsets.shape[0] - 1
     queries = data["queries"][:ST_QUERIES]
     engine = Engine(Config(index_mode="segments", query_batch=ST_BATCH,
-                           embedding_enabled=False))
-    if engine.device.type != "cuda":
+                           embedding_enabled=False), device=device)
+    if engine.device.type != torch.device(device or "cuda").type:
         raise SystemExit(f"streaming: engine on {engine.device}")
     index = engine.index
     t0 = time.perf_counter()
-    engine.vocab.extend(f"t{i}" for i in range(NS_VOCAB))
+    engine.vocab.extend(f"t{i}" for i in range(vocab))
     vocab_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     merges0 = {k: metric(f"merges_{k}") for k in ("inline", "background")}
@@ -2140,7 +2189,7 @@ def stream_phase(data, seed: int) -> tuple:
     for i in range(n_docs):
         add(f"d{i}", ids[off[i]:off[i + 1]], tfs[off[i]:off[i + 1]],
             lens[i])
-        if (i + 1) % ST_COMMIT_EVERY == 0 or i + 1 == n_docs:
+        if (i + 1) % commit_every == 0 or i + 1 == n_docs:
             inflight.append(index._merge_future is not None)
             c0 = time.perf_counter()
             engine.commit()
@@ -2164,7 +2213,7 @@ def stream_phase(data, seed: int) -> tuple:
     n_mut = int(n_docs * ST_MUTATE)
     picked = rng.choice(n_docs, size=2 * n_mut, replace=False)
     deleted, upserted = np.sort(picked[:n_mut]), np.sort(picked[n_mut:])
-    fresh = make_doc_arrays(rng, n_mut, NS_VOCAB, NS_AVG_LEN)
+    fresh = make_doc_arrays(rng, n_mut, vocab, avg_len)
     m0 = time.perf_counter()
     for d in deleted.tolist():
         if not engine.delete(f"d{d}"):
@@ -2201,7 +2250,18 @@ def stream_phase(data, seed: int) -> tuple:
                          f"{df_err}, N {snap.n_docs_f} vs {stats[1]}, "
                          f"avgdl {snap.avgdl_f} vs {stats[2]}")
     cm = np.asarray(commit_ms[1:])
+    # the steady commits split by whether a background merge was in
+    # flight when each began
+    split = {}
+    for key, sel in (("merge_inflight", True), ("alone", False)):
+        part = cm[np.asarray(inflight[1:], bool) == sel]
+        split[key] = ({"commits": int(part.shape[0]),
+                       "p50": float(np.percentile(part, 50)),
+                       "p99": float(np.percentile(part, 99)),
+                       "max": float(part.max())} if part.shape[0]
+                      else {"commits": 0})
     res = {"docs": n_docs, "commits": len(commit_ms),
+           "commit_every": commit_every,
            "vocab_register_s": vocab_s, "stream_s": stream_s,
            "docs_per_s": n_docs / stream_s,
            "first_commit_ms": commit_ms[0],
@@ -2209,6 +2269,7 @@ def stream_phase(data, seed: int) -> tuple:
            "commit_ms_p99": float(np.percentile(cm, 99)),
            "commit_ms_max": float(cm.max()),
            "merge_inflight_share": float(np.mean(inflight)),
+           "commit_ms_split": split,
            "merges": {k: metric(f"merges_{k}") - merges0[k]
                       for k in merges0},
            "quiesce_s": quiesce_s, "segments_quiesced": segs_quiesced,
@@ -2221,7 +2282,7 @@ def stream_phase(data, seed: int) -> tuple:
         f"commits: first {commit_ms[0]:.0f} ms, then p50 "
         f"{res['commit_ms_p50']:.1f} p99 {res['commit_ms_p99']:.1f} max "
         f"{res['commit_ms_max']:.1f} ms; merge in flight at "
-        f"{res['merge_inflight_share']:.0%} of commits; merges "
+        f"{res['merge_inflight_share']:.0%} of commits ({split}); merges "
         f"{res['merges']}; quiesce {quiesce_s:.1f}s -> {segs_quiesced} "
         f"segments; {n_mut} deletes + {n_mut} upserts committed in "
         f"{mutate_commit_ms:.0f} ms -> {len(snap.segments)} segments; "
@@ -2236,7 +2297,7 @@ def stream_phase(data, seed: int) -> tuple:
     rows = [nm for seg in snap.segments
             for nm, a in zip(seg.names, seg.live) if a]
     t0 = time.perf_counter()
-    oracle = oracle_check(live, queries, hits, NS_VOCAB, rows,
+    oracle = oracle_check(live, queries, hits, vocab, rows,
                           stats=stats, names=live_names)
     oracle["seconds"] = time.perf_counter() - t0
     up = {f"d{d}" for d in upserted.tolist()}
@@ -2253,7 +2314,8 @@ def stream_phase(data, seed: int) -> tuple:
         f"ms against a {res['scorer']['bound_ms']:.3f} ms bound "
         f"({res['scorer']['bound_by']}), x{res['scorer']['x_bound']:.0f}")
     check_clean(engine, "streaming engine")
-    return res, {"engine": engine, "hits": hits, "arrays": arrays}
+    return res, {"engine": engine, "hits": hits, "arrays": arrays,
+                 "deleted": deleted, "upserted": upserted, "fresh": fresh}
 
 
 def tier_phase(ctx8, queries, work: str) -> dict:
@@ -2361,10 +2423,20 @@ def tier_phase(ctx8, queries, work: str) -> dict:
             "tier_stats": after, "upload_fault": fault}
 
 
+def first_docs(corpus, n: int):
+    """The corpus's first ``n`` docs (views, no copy)."""
+    offsets, ids, tfs, lengths = corpus
+    n = min(n, offsets.shape[0] - 1)
+    end = int(offsets[n])
+    return offsets[:n + 1], ids[:end], tfs[:end], lengths[:n]
+
+
 def streaming_phases(data, seed: int, work: str) -> dict:
-    """Phase 8: 8a streaming, 8b tiering; the phase's seconds."""
+    """Phase 8: 8a streaming (the first ``ST_DOCS`` docs of the corpus),
+    8b tiering; the phase's seconds."""
     t0 = time.perf_counter()
-    res, ctx8 = stream_phase(data, seed)
+    res, ctx8 = stream_phase({"corpus": first_docs(data["corpus"], ST_DOCS),
+                              "queries": data["queries"]}, seed)
     res["tier"] = tier_phase(ctx8, data["queries"][:ST_QUERIES], work)
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t0
@@ -3110,14 +3182,32 @@ class Fleet:
 
 
 def free_ports(n: int) -> list:
+    """``n`` distinct ports free on 127.0.0.1, below the kernel's
+    ephemeral range. A port that ``bind(0)`` hands out lies in that
+    range, where another process's outgoing connection can take it as its
+    source port before the node it was drawn for binds it (phase 7's
+    worker1 exited so, "address already in use", while the leader and
+    worker0 booted); below the range only a bind takes a port."""
+    import random
     import socket
-    socks = [socket.socket() for _ in range(n)]
-    for s_ in socks:
-        s_.bind(("127.0.0.1", 0))
-    ports = [s_.getsockname()[1] for s_ in socks]
-    for s_ in socks:
-        s_.close()
-    return ports
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except OSError:
+        low = 32768                 # Linux's default range starts here
+    candidates = list(range(max(1024, low - 10_000), low))
+    random.shuffle(candidates)
+    ports = []
+    for port in candidates:
+        with socket.socket() as s_:
+            try:
+                s_.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        ports.append(port)
+        if len(ports) == n:
+            return ports
+    raise SystemExit(f"no {n} free ports below the ephemeral range ({low})")
 
 
 def fleet_traffic(url: str, queries, mode: str = "sparse",
@@ -4206,6 +4296,7 @@ def bench_phase(seed: int, work: str) -> dict:
     engine = keep.pop("engine")
     qb, _ = engine.searcher._vectorize(keep["queries"][:B.C5_BATCH],
                                        B.C5_BATCH)
+    check_rearrange(engine, qb)
     res["c5_kernel"] = main_path_kernel_times(engine, qb)
     res["c5_kernel"]["vocab_cap"] = int(engine.index.snapshot.df.shape[0])
     log(f"[bench] config 5 batch, v3 == v4 == plain bitwise over "
@@ -4268,11 +4359,15 @@ MODE_CUTS = {
     "hybrid": dict(n_docs=2_000),              # 20,000
     "tier": dict(n_docs=120_000, phase_docs=5_000,     # 30M docs in 1M
                  budget_mb=1),                          # phases, 256 MB
-    "overload": dict(n_docs=1_000, phase_s=1.0, warm_s=0.5),  # 20,000,
-                                                               # 12 s / 6 s
-    "routers": dict(n_docs=1_000, warm_s=0.5, phase_s=1.0),   # 4,000, 5 s
-                                                               # / 10 s
-    "replay": dict(n_docs=1_000, warm_s=0.5, capture_s=1.0),  # 8,000, 5 s
+    # each fleet mode boots a fleet of its own (~35-45 s): the overload's
+    # autopilot fleet alone and the routers at 1 and 2, 500 docs (the
+    # static fleet, 4 routers and 1,000 docs until the run passed its
+    # time limit)
+    "overload": dict(n_docs=500, phase_s=1.0, warm_s=0.5,     # 20,000,
+                     static=False),                            # 12 s / 6 s
+    "routers": dict(n_docs=500, warm_s=0.5, phase_s=1.0,      # 4,000, 5 s
+                    counts=(1, 2)),                           # / 10 s, 1-4
+    "replay": dict(n_docs=500, warm_s=0.5, capture_s=1.0),    # 8,000, 5 s
                                                                # / 12 s
 }
 MODE_ARTIFACTS = {"compute": "BENCH_r13.json", "kernel": "BENCH_r09.json",
@@ -4284,8 +4379,24 @@ MODE_ARTIFACTS = {"compute": "BENCH_r13.json", "kernel": "BENCH_r09.json",
 def _fleet_runs(mode: str, art: dict) -> list:
     """The fleet results of a fleet mode's artifact."""
     if mode == "overload":
-        return [art["extra"]["autopilot"], art["extra"]["static_hand_tuned"]]
+        return [r for r in (art["extra"]["autopilot"],
+                            art["extra"]["static_hand_tuned"]) if r]
     return [art["extra"]]
+
+
+def heap_stalls() -> dict:
+    """This process's cyclic-GC heap: the objects it tracks and the ms of
+    two full collections in a row (the first also frees what earlier
+    phases left in cycles; the second is what a full collection costs
+    inside a window)."""
+    import gc
+    tracked = len(gc.get_objects())
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        gc.collect()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"tracked_objects": tracked, "full_collection_ms": ms}
 
 
 def modes_phase(work: str, device=None, cuts: dict = MODE_CUTS) -> dict:
@@ -4305,7 +4416,8 @@ def modes_phase(work: str, device=None, cuts: dict = MODE_CUTS) -> dict:
     from tfidf_tpu_torch import bench_modes as BM
     from tfidf_tpu_torch.ops import ell as E
     t_phase = time.perf_counter()
-    res = {"wall_s": {}, "headline": {}}
+    res = {"wall_s": {}, "headline": {}, "heap": heap_stalls()}
+    log(f"[modes] this process's heap before the modes: {res['heap']}")
     E.reset_launches()
     workers = 0
     for mode, kw in cuts.items():
@@ -4319,6 +4431,7 @@ def modes_phase(work: str, device=None, cuts: dict = MODE_CUTS) -> dict:
         if mode == "tier":
             gc.disable()
         os.environ["BENCH_OUT"] = path
+        stalls0 = len(BM.CLIENT_STALLS)
         try:
             with contextlib.redirect_stdout(out):
                 BM.MAINS[mode](device=device, **kw)
@@ -4326,6 +4439,8 @@ def modes_phase(work: str, device=None, cuts: dict = MODE_CUTS) -> dict:
             gc.enable()
             del os.environ["BENCH_OUT"]
         res["wall_s"][mode] = time.perf_counter() - t0
+        if mode == "overload":
+            res["overload_client_stalls"] = BM.CLIENT_STALLS[stalls0:]
         with open(path) as f:
             art = json.load(f)
         res[mode] = art
@@ -4393,8 +4508,23 @@ def main() -> int:
     if args.docs != NS_DOCS:
         log(f"[device] CORPUS CUT: --docs {args.docs} (north star is "
             f"{NS_DOCS})")
+    phase_s = {}
+    t_mark = [t_start]
+
+    def done(name: str) -> None:
+        """Close phase ``name``: its wall seconds since the last close."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"[phase] {name} {phase_s[name]:.1f}s")
+
     t0 = time.perf_counter()
-    info = kernels.build_all()
+    # phase 3's corpus is drawn on the host while nvcc builds the kernels
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(kernels.build_all)
+        drawn = draw_corpus(args.seed, args.docs)
+        info = building.result()
     log(f"[build] {time.perf_counter() - t0:.2f}s: " + "; ".join(
         f"{n}: {v['seconds']:.2f}s" for n, v in info.items()))
     for n, v in info.items():
@@ -4402,15 +4532,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {n}: {line.strip()}")
 
+    done("1")
     # ---- phase 2: kernels against their plain versions ----
     cases = kernel_cases(args.seed)
     topk = topk_cases(args.seed)
+    done("2")
     # ---- phase 3: the main path ----
-    main_res, ctx = main_path(args.seed, args.docs)
+    main_res, ctx = main_path(args.seed, drawn)
+    del drawn
+    done("3")
     # ---- phase 3d: the dense plane ----
     dense = dense_phase(ctx, args.seed)
+    done("3d")
     # ---- phase 12: the device witness, on phase 3's engine ----
     witness = witness_phase(ctx, args.seed)
+    done("12")
     print(json.dumps({"witness": {
         k: witness[k] for k in ("window_s", "batches", "launches",
                                 "builds_after_warmup", "observations",
@@ -4418,20 +4554,24 @@ def main() -> int:
                                 "h2d_blocking_per_batch")}}), flush=True)
     # ---- phase 4: the text path ----
     text = text_path()
+    done("4")
     # ---- phases 5-6: the worker engine, the durable text path ----
     shutil.rmtree(args.work, ignore_errors=True)
     os.makedirs(args.work)
     try:
         worker = {"checkpoint": checkpoint_phase(ctx, main_res, args.work)}
         worker["compute"] = compute_phase(ctx)
+        done("5")
         # the fleet's two shard checkpoints, from phase 3's corpus
         data = {"corpus": ctx["corpus"], "rows": ctx["rows"],
                 "queries": ctx["served"], "hits": ctx["hits"]}
         del ctx
         torch.cuda.empty_cache()
         shards = fleet_shards(data, args.work)
+        done("7 shards")
         durable = durable_phase(args.seed, args.work)
         torch.cuda.empty_cache()
+        done("6")
         # ---- phase 8: streaming segments and tiering ----
         streaming = streaming_phases(data, args.seed, args.work)
         streaming["scorer"]["ell_v4_ms_main_path"] = \
@@ -4440,19 +4580,25 @@ def main() -> int:
             f" ms against the ELL kernel's {main_res['kernel']['v4_ms']:.2f}"
             f" ms on the same corpus (phase 3, precomputed impacts)")
         torch.cuda.empty_cache()
+        done("8")
         # ---- phase 9: the mesh ----
         mesh = mesh_phases(data, args.seed)
+        done("9")
         # ---- phase 7: the fleet, one process per node ----
         fleet = fleet_phase(data, shards, args.seed, args.work, args.out)
         del data, shards
         torch.cuda.empty_cache()
+        done("7+13")
         # ---- phase 10: the bench's configs ----
         bench = bench_phase(args.seed, args.work)
         torch.cuda.empty_cache()
+        done("10")
         # ---- phase 11: the bench's other modes ----
         modes = modes_phase(args.work)
+        done("11")
     finally:
         shutil.rmtree(args.work, ignore_errors=True)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
 
     kt = main_res["kernel"]
     line = {"kernels": [
@@ -4483,6 +4629,7 @@ def main() -> int:
                    "mesh": mesh, "fleet": fleet, "bench": bench,
                    "modes": modes, "witness": witness,
                    "build": {n: v["seconds"] for n, v in info.items()},
+                   "phase_s": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

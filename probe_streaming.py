@@ -2,13 +2,13 @@
 one card.
 
 Builds phase 3's corpus and queries from ``--seed`` (the 1M-doc north
-star), then runs ``streaming_phases``: config 4's streaming build with a
-commit every 10,000 docs, the quiesce, 1% deletes and 1% upserts, 512
-queries against the scipy oracle over the live docs, the segment scorer
-beside its bound, then the checkpoint restored tiered (tiered == bypass ==
-untiered to the bit) and one injected upload fault. Prints the card's
-name and power limit first; the phase's record goes to
-``<--out>/streaming.json``.
+star), then runs ``streaming_phases``: config 4's streaming build of the
+corpus's first ``ST_DOCS`` (500,000) docs with a commit every 10,000
+docs, the quiesce, 1% deletes and 1% upserts, 512 queries against the
+scipy oracle over the live docs, the segment scorer beside its bound,
+then the checkpoint restored tiered (tiered == bypass == untiered to the
+bit) and one injected upload fault. Prints the card's name and power
+limit first; the phase's record goes to ``<--out>/streaming.json``.
 
     python3 probe_streaming.py --out chiprun_out/streaming
 """

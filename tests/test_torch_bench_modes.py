@@ -487,3 +487,149 @@ def test_a_mode_function_refuses_without_a_named_device(mode):
           "routers": M.bench_routers, "replay": M.bench_replay}[mode]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fn(np.random.default_rng(0))
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_overload_static_run_is_optional(tmp_path, monkeypatch, capsys,
+                                         static):
+    """``overload_main(static=False)`` boots the autopilot fleet alone
+    (``chip_smoke.py`` phase 11's cut): one ``bench_overload`` call, the
+    artifact's static run None; the default runs static, then autopilot.
+    Phase 11 reads the fleet runs the artifact holds."""
+    import json
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(ROOT)
+    calls = []
+
+    def fake(rng, autopilot=False, corpus=None, *, device=None, **sizes):
+        calls.append(autopilot)
+        side = {"interactive": {"p99_ms": 1.0, "shed_rate": 0.0, "qps": 9.0},
+                "cache_hit_rate": 0.5}
+        return {"one_x": side, "two_x": side, "p99_ratio_2x_vs_1x": 1.0,
+                "mode": "autopilot" if autopilot else "static"}
+
+    monkeypatch.setattr(M, "bench_overload", fake)
+    out = tmp_path / "OVERLOAD.json"
+    monkeypatch.setenv("BENCH_OUT", str(out))
+    M.overload_main(device="cpu", static=static, n_docs=20, vocab=200,
+                    query_pool=16)
+    assert calls == ([False, True] if static else [True])
+    art = json.loads(out.read_text())
+    assert (art["extra"]["static_hand_tuned"] is None) is not static
+    runs = cs._fleet_runs("overload", art)
+    assert [r["mode"] for r in runs] == (["autopilot", "static"] if static
+                                         else ["autopilot"])
+    assert cs.MODE_CUTS["overload"]["static"] is False
+
+
+def test_routers_headline_without_the_four_router_phase(tmp_path,
+                                                        monkeypatch):
+    """``chip_smoke.py`` phase 11 runs ``--routers`` at 1 and 2 routers
+    (``counts=(1, 2)``): the headline's 4-router numbers are None."""
+    import json
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(ROOT)
+    seen = {}
+
+    def fake(rng, *, device=None, **sizes):
+        seen.update(sizes)
+        row = {"admitted_qps": 10.0, "p99_ms": 1.0, "cache_hit_rate": 0.5}
+        return {"routers": {str(c): row for c in sizes["counts"]},
+                "scaling_2r_vs_1r": 1.0, "scaling_4r_vs_1r": None}
+
+    monkeypatch.setattr(M, "bench_routers", fake)
+    out = tmp_path / "BENCH_r07.json"
+    monkeypatch.setenv("BENCH_OUT", str(out))
+    M.routers_main(device="cpu", **cs.MODE_CUTS["routers"])
+    assert seen["counts"] == (1, 2)
+    art = json.loads(out.read_text())
+    assert art["extra"]["scaling_4r_vs_1r"] is None
+    assert set(art["extra"]["routers"]) == {"1", "2"}
+
+
+@pytest.mark.parametrize("collector", [True, False])
+def test_client_stalls_records_collections_and_ticker(collector):
+    """A client window appends one record to ``CLIENT_STALLS``: a full
+    collection inside it counts as one generation-2 pause when the
+    collector is on (``gc.collect`` runs even when it is off, so the
+    record says which), and the ticker's lateness covers the window."""
+    import gc
+    import time
+    n0 = len(M.CLIENT_STALLS)
+    was = gc.isenabled()
+    if not collector:
+        gc.disable()
+    try:
+        with M._ClientStalls("w") as stalls:
+            time.sleep(0.05)
+            gc.collect()
+            time.sleep(0.05)
+    finally:
+        if was:
+            gc.enable()
+    (rec,) = M.CLIENT_STALLS[n0:]
+    assert rec["window"] == "w" and rec["gc_enabled"] is collector
+    assert rec["gc_collections"]["gen2"] >= 1
+    assert 0.0 < rec["gc_pause_ms_max"] <= rec["gc_pause_ms_sum"]
+    assert rec["ticks"] >= 5
+    assert 0.0 <= rec["tick_late_ms_p99"] <= rec["tick_late_ms_max"]
+    assert stalls._on_gc not in gc.callbacks
+
+
+def test_heap_stalls_reads_the_heap():
+    """``chip_smoke.heap_stalls``: the tracked objects and two timed full
+    collections, as phase 11 records them before the modes."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(ROOT)
+    heap = cs.heap_stalls()
+    assert heap["tracked_objects"] > 1000
+    assert len(heap["full_collection_ms"]) == 2
+    assert all(ms > 0.0 for ms in heap["full_collection_ms"])
+
+
+def test_stall_probe_records_each_run_and_restores_the_collector(
+        monkeypatch):
+    """``probe_client_stalls.overload_run``: a fleet's windows and its
+    cross-check, with the collector as asked inside the run and enabled
+    after it; the live-histogram disagreement is recorded as the run's
+    outcome, and any other failure propagates."""
+    import gc
+    sys.path.insert(0, ROOT)
+    try:
+        import probe_client_stalls as P
+    finally:
+        sys.path.remove(ROOT)
+    seen = []
+
+    def fake(rng, autopilot=False, corpus=None, **sizes):
+        seen.append((autopilot, gc.isenabled(), sizes))
+        with M._ClientStalls("1x"):
+            pass
+        if sizes["n_docs"] == 1:
+            raise RuntimeError("[ov] live histogram quantiles disagree "
+                               "with the bench's measured distribution")
+        if sizes["n_docs"] == 2:
+            raise RuntimeError("[ov] phase 1x client failures")
+        return {"live_histogram_check": {"p99": {"ok": True}}}
+
+    monkeypatch.setattr(M, "bench_overload", fake)
+    on = P.overload_run(None, None, {"n_docs": 0}, True)
+    off = P.overload_run(None, None, {"n_docs": 1}, False)
+    assert [s[:2] for s in seen] == [(True, True), (True, False)]
+    assert gc.isenabled()
+    assert on["check"] == {"p99": {"ok": True}} and on["gc"] is True
+    assert "disagree" in off["check"]["disagreed"] and off["gc"] is False
+    assert [w["window"] for w in on["windows"]] == ["1x"]
+    assert off["windows"][0]["gc_enabled"] is False
+    with pytest.raises(RuntimeError, match="client failures"):
+        P.overload_run(None, None, {"n_docs": 2}, False)
+    assert gc.isenabled()

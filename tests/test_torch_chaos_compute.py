@@ -489,6 +489,30 @@ class TestFleetBarrier:
             taken.close()
             _kill_all(procs)
 
+    def test_fleet_ports_lie_below_the_ephemeral_range(self):
+        """``chip_smoke.free_ports``: distinct ports, each free to bind,
+        all below the range that ``bind(0)`` and outgoing connections draw
+        from, so no other process's connection can take one before its
+        node binds it; a port already bound is never drawn."""
+        import socket
+        cs = _chip_smoke()
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+        ports = cs.free_ports(5)
+        assert len(set(ports)) == 5
+        assert all(1024 <= p < low for p in ports)
+        held = []
+        try:
+            for p in ports:
+                s_ = socket.socket()
+                s_.bind(("127.0.0.1", p))
+                held.append(s_)
+            again = cs.free_ports(5)
+            assert not set(again) & set(ports)
+        finally:
+            for s_ in held:
+                s_.close()
+
     def test_hold_index_bytes_refuses_an_upload_routed_past_a_worker(
             self, tmp_path):
         """The failure the barrier guards against, seeded in the leader:

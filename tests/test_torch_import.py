@@ -1,6 +1,7 @@
 """The port's import closure: no jax, nothing of tfidf_tpu, no CUDA."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -220,7 +221,13 @@ def test_graftcheck_modules_import_alone():
 
 
 def test_port_and_chip_smoke_never_import_jax_or_the_reference():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    """Nor the port's root probes (``probe_*_torch.py``, and the three
+    that run a part of ``chip_smoke.py`` alone)."""
+    probes = sorted(glob.glob(os.path.join(ROOT, "probe_*_torch.py")))
+    assert len(probes) >= 3, probes
+    probes += [os.path.join(ROOT, f"probe_{p}.py")
+               for p in ("streaming", "fleet", "client_stalls")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), *probes]
     for dirpath, _dirs, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

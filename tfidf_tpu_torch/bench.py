@@ -722,12 +722,22 @@ def bench_cluster(rng, *, n_docs: int = C2_DOCS, vocab: int = C2_VOCAB,
             ("127.0.0.1", coord), timeout=1).close() or True)
         ports = [_free_port() for _ in range(3)]
         urls = [f"http://127.0.0.1:{p}" for p in ports]
-        for i, port in enumerate(ports):
-            spawn(["serve", "--port", str(port), "--host", "127.0.0.1",
+
+        def serve(i):
+            spawn(["serve", "--port", str(ports[i]), "--host", "127.0.0.1",
                    "--coordinator-address", f"127.0.0.1:{coord}",
                    "--documents-path", f"{tmp}/n{i}/docs",
                    "--index-path", f"{tmp}/n{i}/index"])
-            _wait_until(lambda u=urls[i]: _http_get(u + "/api/status"))
+
+        # the leader first (it wins the election), then both workers
+        # together
+        serve(0)
+        _wait_until(lambda: _http_get(urls[0] + "/api/status")
+                    == b"I am the leader")
+        serve(1)
+        serve(2)
+        for u in urls[1:]:
+            _wait_until(lambda u=u: _http_get(u + "/api/status"))
         leader = urls[0]
         leader_hp = ("127.0.0.1", ports[0])
         _wait_until(lambda: len(_json.loads(

@@ -42,6 +42,7 @@ card's processes.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import os
 import socket
@@ -355,6 +356,65 @@ def _live_quantile_crosscheck(client_lats_s: list, live_snap: dict
     return out
 
 
+# the clients of a fleet mode are threads of one process, so a stall of
+# that process reads as latency no server saw; each client window records
+# the process's own stalls: every cyclic-GC collection (gc.callbacks) and
+# the lateness of a thread that wakes every _TICK_S
+_TICK_S = 0.005
+CLIENT_STALLS: list[dict] = []     # one record per window, in order
+
+
+class _ClientStalls:
+    """One client window's stalls of this process, appended to
+    ``CLIENT_STALLS`` on exit: the collections by generation with their
+    summed and longest pause, and the ticker's longest and p99 lateness
+    (ms), beside whether the collector was enabled."""
+
+    def __init__(self, window: str):
+        self.window = window
+
+    def __enter__(self) -> "_ClientStalls":
+        self._pauses: list[tuple[int, float]] = []
+        self._late: list[float] = []
+        self._t_gc = 0.0
+        self._stop = threading.Event()
+        self._ticker = threading.Thread(target=self._tick, daemon=True)
+        gc.callbacks.append(self._on_gc)
+        self._ticker.start()
+        return self
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t_gc = time.perf_counter()
+        else:
+            self._pauses.append((info["generation"],
+                                 (time.perf_counter() - self._t_gc) * 1e3))
+
+    def _tick(self) -> None:
+        due = time.perf_counter() + _TICK_S
+        while not self._stop.wait(max(0.0, due - time.perf_counter())):
+            now = time.perf_counter()
+            self._late.append((now - due) * 1e3)
+            due = now + _TICK_S
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._ticker.join(timeout=1.0)
+        gc.callbacks.remove(self._on_gc)
+        late = sorted(self._late)
+        ms = [p for _, p in self._pauses]
+        CLIENT_STALLS.append({
+            "window": self.window, "gc_enabled": gc.isenabled(),
+            "gc_collections": {f"gen{g}": sum(1 for q, _ in self._pauses
+                                              if q == g) for g in (0, 1, 2)},
+            "gc_pause_ms_sum": round(sum(ms), 3),
+            "gc_pause_ms_max": round(max(ms, default=0.0), 3),
+            "ticks": len(late),
+            "tick_late_ms_p99": round(late[int(len(late) * 0.99)], 3)
+            if late else 0.0,
+            "tick_late_ms_max": round(late[-1], 3) if late else 0.0})
+
+
 def bench_overload(rng, autopilot: bool = False,
                    corpus: tuple | None = None, *, n_docs: int = OV_DOCS,
                    vocab: int = OV_VOCAB, avg_len: int = OV_AVG_LEN,
@@ -491,7 +551,8 @@ def bench_overload(rng, autopilot: bool = False,
                                          args=(i, "bulk"), daemon=True)
                         for i in range(n_bulk)]
             with _measured_window(f"overload-{mult}x",
-                                  steady_state=measured):
+                                  steady_state=measured), \
+                    _ClientStalls(f"{mult}x{'' if measured else ' warm'}"):
                 t1 = time.perf_counter()
                 for t in threads:
                     t.start()
@@ -539,7 +600,8 @@ def bench_overload(rng, autopilot: bool = False,
                 f"p50 {it['p50_ms']}ms, p99 {it['p99_ms']}ms, "
                 f"shed int {it['shed_rate']:.1%} / "
                 f"bulk {out['bulk']['shed_rate']:.1%}, "
-                f"cache hit {out['cache_hit_rate']:.1%}")
+                f"cache hit {out['cache_hit_rate']:.1%}; client process "
+                f"stalls {CLIENT_STALLS[-1]}")
             return out
 
         # two warm rounds: the first pays each worker's first commit and
@@ -613,11 +675,13 @@ def bench_overload(rng, autopilot: bool = False,
         _kill_all(procs)
 
 
-def overload_main(*, device=None, **sizes) -> None:
+def overload_main(*, device=None, static: bool = True, **sizes) -> None:
     """``--overload`` (artifact ``OVERLOAD.json``): two runs of the same
     closed-loop zipfian workload on one corpus, the hand-tuned static
     watermarks and then the SLO autopilot. The headline is the autopilot
-    run's 2x admitted-interactive p99, and its 2x/1x p99 ratio."""
+    run's 2x admitted-interactive p99, and its 2x/1x p99 ratio.
+    ``static=False`` runs the autopilot fleet alone (a cut: each run is a
+    fleet of its own to boot, with the same gates)."""
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     vocab = sizes.get("vocab", OV_VOCAB)
@@ -627,8 +691,8 @@ def overload_main(*, device=None, **sizes) -> None:
                            sizes.get("query_pool", OV_QUERY_POOL)))
     log(f"[ov] corpus in {time.perf_counter()-t0:.0f}s (shared by both "
         f"runs)")
-    ov_static = bench_overload(rng, autopilot=False, corpus=corpus,
-                               device=device, **sizes)
+    ov_static = (bench_overload(rng, autopilot=False, corpus=corpus,
+                                device=device, **sizes) if static else None)
     ov_auto = bench_overload(rng, autopilot=True, corpus=corpus,
                              device=device, **sizes)
     result = {
@@ -643,7 +707,8 @@ def overload_main(*, device=None, **sizes) -> None:
         "extra": {
             "autopilot": ov_auto,
             "static_hand_tuned": ov_static,
-            "p99_ratio_static": ov_static["p99_ratio_2x_vs_1x"],
+            "p99_ratio_static": (ov_static["p99_ratio_2x_vs_1x"]
+                                 if static else None),
             "p99_ratio_autopilot": ov_auto["p99_ratio_2x_vs_1x"],
         },
         "device": card_info(),
@@ -652,7 +717,8 @@ def overload_main(*, device=None, **sizes) -> None:
         "ap_p99_1x_ms": ov_auto["one_x"]["interactive"]["p99_ms"],
         "ap_p99_2x_ms": ov_auto["two_x"]["interactive"]["p99_ms"],
         "ap_p99_ratio": ov_auto["p99_ratio_2x_vs_1x"],
-        "static_p99_ratio": ov_static["p99_ratio_2x_vs_1x"],
+        "static_p99_ratio": (ov_static["p99_ratio_2x_vs_1x"] if static
+                             else None),
         "ap_shed_int_2x":
             ov_auto["two_x"]["interactive"]["shed_rate"],
         "ap_qps_2x": ov_auto["two_x"]["interactive"]["qps"],
@@ -1170,8 +1236,10 @@ def bench_routers(rng, corpus: tuple | None = None, *,
             "routers": table,
             "scaling_2r_vs_1r": round(
                 table["2"]["admitted_qps"] / q1, 4) if q1 else 0.0,
-            "scaling_4r_vs_1r": round(
-                table["4"]["admitted_qps"] / q1, 4) if q1 else 0.0,
+            # None when the 4-router phase was cut (chip_smoke's phase 11)
+            "scaling_4r_vs_1r": (round(
+                table["4"]["admitted_qps"] / q1, 4) if q1 else 0.0)
+            if "4" in table else None,
             "parity_checked": True,
             "n_docs": n_docs, "query_pool": query_pool,
             "zipf_s": OV_ZIPF_S,
@@ -1206,7 +1274,7 @@ def routers_main(*, device=None, **sizes) -> None:
     headline = {
         "qps_1r": r7["routers"]["1"]["admitted_qps"],
         "qps_2r": r7["routers"]["2"]["admitted_qps"],
-        "qps_4r": r7["routers"]["4"]["admitted_qps"],
+        "qps_4r": r7["routers"].get("4", {}).get("admitted_qps"),
         "scaling_2r": r7["scaling_2r_vs_1r"],
         "scaling_4r": r7["scaling_4r_vs_1r"],
         "p99_2r_ms": r7["routers"]["2"]["p99_ms"],
