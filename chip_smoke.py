@@ -98,7 +98,9 @@ beside it. Phases (any failure fails the run):
    ``max_segments``, ``merge_workers`` and ``sync_merge_nnz``, batch 64,
    the dense plane off, the 500k vocabulary registered first), a commit
    every 10,000 docs, a quiesce as ``bench.py`` does, then 1% of the docs
-   deleted and another 1% upserted with new content: docs/s, commit
+   deleted and another 1% upserted with new content, and a quiesce again
+   (the merges that commit starts are published before serving, so 8a
+   serves the state that 8b saves): docs/s, commit
    p50/p99/max (the first apart), merges inline and background, the share
    of commits with a merge in flight, device memory; the incremental df
    equal to a recompute over the segments; 512 of phase 3's queries
@@ -229,8 +231,9 @@ import time
 import numpy as np
 import torch
 
-# bench.py's corpus and query synthesis, as the port's bench draws it
-from tfidf_tpu_torch.bench import make_doc_arrays, make_queries
+# bench.py's corpus and query synthesis, as the port's bench draws it,
+# and the port bench's fleet ports (below the kernel's ephemeral range)
+from tfidf_tpu_torch.bench import free_ports, make_doc_arrays, make_queries
 
 SEED = 0
 TOP_K = 10
@@ -2154,6 +2157,22 @@ def serve_segments(engine, queries) -> tuple:
                           "search_batch_arrays": len(queries) / (t2 - t1)}
 
 
+def quiesce(engine) -> float:
+    """Drain the background merges and publish them, until the segment
+    count is back under ``max_segments`` with no merge in flight; the
+    seconds it took."""
+    index = engine.index
+    q0 = time.perf_counter()
+    for _ in range(32):
+        index.wait_for_merges()
+        engine.commit()
+        if len(index._segments) <= engine.config.max_segments \
+                and index._merge_future is None:
+            break
+    sync()
+    return time.perf_counter() - q0
+
+
 def stream_phase(data, seed: int, *, commit_every: int = ST_COMMIT_EVERY,
                  vocab: int = NS_VOCAB, avg_len: int = NS_AVG_LEN,
                  device=None) -> tuple:
@@ -2161,9 +2180,9 @@ def stream_phase(data, seed: int, *, commit_every: int = ST_COMMIT_EVERY,
     over ``vocab`` terms, ``avg_len`` long on average) into a
     segments-mode engine on the card (``device`` only for the tests), a
     commit every ``commit_every`` docs, a quiesce, 1% deletes and 1%
-    upserts, then ``ST_QUERIES`` queries held to a scipy oracle over the
-    live docs. ``probe_msmarco_torch.py`` runs it at config 4's named
-    size."""
+    upserts, a quiesce, then ``ST_QUERIES`` queries held to a scipy
+    oracle over the live docs. ``probe_msmarco_torch.py`` runs it at
+    config 4's named size."""
     from tfidf_tpu_torch.engine.engine import Engine
     from tfidf_tpu_torch.utils.config import Config
     corpus = data["corpus"]
@@ -2198,15 +2217,7 @@ def stream_phase(data, seed: int, *, commit_every: int = ST_COMMIT_EVERY,
     stream_s = time.perf_counter() - t0
     # quiesce as bench.py does: drain the background merges (untimed in
     # the sustained rate — they ran off the write path)
-    q0 = time.perf_counter()
-    for _ in range(32):
-        index.wait_for_merges()
-        engine.commit()
-        if len(index._segments) <= engine.config.max_segments \
-                and index._merge_future is None:
-            break
-    sync()
-    quiesce_s = time.perf_counter() - q0
+    quiesce_s = quiesce(engine)
     segs_quiesced = len(index.snapshot.segments)
     # tombstone 1% of the docs and upsert another 1% with new content
     rng = np.random.default_rng(seed + 8)
@@ -2227,6 +2238,10 @@ def stream_phase(data, seed: int, *, commit_every: int = ST_COMMIT_EVERY,
     stream.synchronize()
     mutate_commit_ms = (time.perf_counter() - c0) * 1e3
     mutate_s = time.perf_counter() - m0
+    # publish the merges that commit started before serving: a splice
+    # reclaims tombstones from df, N and avgdl, so queries served across
+    # one would see two states, and phase 8b restores the spliced one
+    mutate_quiesce_s = quiesce(engine)
     snap = index.snapshot
     mem = {"allocated_bytes": torch.cuda.memory_allocated(),
            "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
@@ -2276,6 +2291,7 @@ def stream_phase(data, seed: int, *, commit_every: int = ST_COMMIT_EVERY,
            "segments": len(snap.segments),
            "deleted": n_mut, "upserted": n_mut,
            "mutate_s": mutate_s, "mutate_commit_ms": mutate_commit_ms,
+           "mutate_quiesce_s": mutate_quiesce_s,
            "memory": mem, "df_full_recomputes": index.df_full_recomputes}
     log(f"[stream] {n_docs} docs in {stream_s:.1f}s = "
         f"{res['docs_per_s']:.0f} docs/s sustained, {len(commit_ms)} "
@@ -2285,7 +2301,8 @@ def stream_phase(data, seed: int, *, commit_every: int = ST_COMMIT_EVERY,
         f"{res['merge_inflight_share']:.0%} of commits ({split}); merges "
         f"{res['merges']}; quiesce {quiesce_s:.1f}s -> {segs_quiesced} "
         f"segments; {n_mut} deletes + {n_mut} upserts committed in "
-        f"{mutate_commit_ms:.0f} ms -> {len(snap.segments)} segments; "
+        f"{mutate_commit_ms:.0f} ms, quiesced in {mutate_quiesce_s:.1f}s "
+        f"-> {len(snap.segments)} segments; "
         f"device memory {mem}")
 
     engine.search_batch(queries[:ST_BATCH], k=TOP_K)          # warm
@@ -3179,35 +3196,6 @@ class Fleet:
                 codes[tag] = "killed"
             f.close()
         return codes
-
-
-def free_ports(n: int) -> list:
-    """``n`` distinct ports free on 127.0.0.1, below the kernel's
-    ephemeral range. A port that ``bind(0)`` hands out lies in that
-    range, where another process's outgoing connection can take it as its
-    source port before the node it was drawn for binds it (phase 7's
-    worker1 exited so, "address already in use", while the leader and
-    worker0 booted); below the range only a bind takes a port."""
-    import random
-    import socket
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-            low = int(f.read().split()[0])
-    except OSError:
-        low = 32768                 # Linux's default range starts here
-    candidates = list(range(max(1024, low - 10_000), low))
-    random.shuffle(candidates)
-    ports = []
-    for port in candidates:
-        with socket.socket() as s_:
-            try:
-                s_.bind(("127.0.0.1", port))
-            except OSError:
-                continue
-        ports.append(port)
-        if len(ports) == n:
-            return ports
-    raise SystemExit(f"no {n} free ports below the ephemeral range ({low})")
 
 
 def fleet_traffic(url: str, queries, mode: str = "sparse",

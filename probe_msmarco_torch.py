@@ -11,7 +11,7 @@ both``:
 * ``stream``: ``chip_smoke.py``'s phase 8a at this shape
   (``index_mode="segments"``, batch 64, the dense plane off): every
   passage through ``add_document_arrays``, a commit every 50,000, the
-  quiesce, 1% deletes and 1% upserts. Gates: the committed df, N and
+  quiesce, 1% deletes and 1% upserts, the quiesce again. Gates: the committed df, N and
   avgdl equal a recompute over the segments; no deleted doc returned;
   512 queries over the full corpus held to the scipy oracle over the
   live docs with tombstone-inclusive statistics (top-10 ids identical

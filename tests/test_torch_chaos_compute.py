@@ -513,6 +513,26 @@ class TestFleetBarrier:
             for s_ in held:
                 s_.close()
 
+    def test_bench_ports_lie_below_the_ephemeral_range(self):
+        """The port bench's ``_free_port`` (every fleet mode, phases 10 and
+        11, the CPU chaos jobs): each port below the range that ``bind(0)``
+        and outgoing connections draw from, free to bind, and never one
+        this process drew before, so single draws in a row are distinct
+        like one ``free_ports`` call; ``chip_smoke.free_ports`` is the same
+        helper."""
+        import socket
+        from tfidf_tpu_torch import bench
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+        ports = [bench._free_port() for _ in range(5)]
+        assert len(set(ports)) == 5
+        assert all(1024 <= p < low for p in ports)
+        for p in ports:
+            with socket.socket() as s_:
+                s_.bind(("127.0.0.1", p))
+        assert not set(bench.free_ports(5)) & set(ports)
+        assert _chip_smoke().free_ports is bench.free_ports
+
     def test_hold_index_bytes_refuses_an_upload_routed_past_a_worker(
             self, tmp_path):
         """The failure the barrier guards against, seeded in the leader:

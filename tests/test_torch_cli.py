@@ -35,6 +35,7 @@ from tfidf_tpu.cluster.coordination import LocalCoordination as JaxLocal
 from tfidf_tpu.cluster.node import SearchNode as JaxNode
 from tfidf_tpu.utils.config import Config as JaxConfig
 from tfidf_tpu_torch.cli import main as port_main
+from tfidf_tpu_torch.tools.graftcheck import pytest_witness
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(ROOT, "demo", "corpus")
@@ -61,7 +62,9 @@ def _free_ports(n):
 
 def _blocked_env(tmp):
     """PYTHONPATH with stub ``jax`` / ``tfidf_tpu`` packages that raise
-    on import, then the repo; no TFIDF_DEVICE inherited."""
+    on import, then the repo; no TFIDF_DEVICE inherited. Under a session of
+    the port's lockdep or protocol witness the stub also holds its child
+    hook."""
     stub = tmp / "blocked"
     for pkg in ("jax", "tfidf_tpu"):
         (stub / pkg).mkdir(parents=True, exist_ok=True)
@@ -70,6 +73,8 @@ def _blocked_env(tmp):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("TFIDF_")}
     env["PYTHONPATH"] = os.pathsep.join([str(stub), ROOT])
+    # under a witnessed session the children install its witnesses
+    pytest_witness.write_child_hook(stub)
     # one host thread per node process: the suite runs beside others
     env["OMP_NUM_THREADS"] = "1"
     env.update({f"TFIDF_{k.upper()}": str(v) for k, v in SMALL.items()})

@@ -67,6 +67,9 @@ TOOLS_MODULES = tuple(f"tools.graftcheck.{m}" for m in (
     "witness", "protocol_witness", "device_witness", "__main__")) + (
     "tools", "tools.graftcheck")
 
+# the harnesses over the port: the witness plugin and the trace demo
+HARNESS_MODULES = ("tools.graftcheck.pytest_witness", "tools.trace_demo")
+
 
 def test_whole_port_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -77,7 +80,8 @@ def test_whole_port_imports_with_jax_blocked():
     assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
     loaded = set(r.stdout.split("HAS")[1].split())
     for mod in (WORKER_MODULES + CLUSTER_MODULES + SEGMENT_MODULES
-                + MESH_MODULES + BENCH_MODULES + TOOLS_MODULES):
+                + MESH_MODULES + BENCH_MODULES + TOOLS_MODULES
+                + HARNESS_MODULES):
         assert f"tfidf_tpu_torch.{mod}" in loaded, mod
 
 
@@ -182,6 +186,32 @@ def test_bench_modules_import_with_jax_blocked():
                        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[] 0 False", r.stdout
+
+
+def test_harness_modules_import_with_jax_blocked():
+    """The witness plugin, the trace demo and the mesh churn probe import
+    with ``jax``, ``tfidf_tpu``, the root ``bench.py`` and the root
+    ``tools`` blocked; importing them installs no witness, starts no node,
+    runs no churn and touches no CUDA state."""
+    code = ("import sys, importlib, importlib.util, threading\n"
+            "for blocked in ('jax', 'tfidf_tpu', 'bench', 'tools'):\n"
+            "    sys.modules[blocked] = None\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module('tfidf_tpu_torch.' + m)\n"
+            "spec = importlib.util.spec_from_file_location('probe', "
+            "'probe_mesh_churn_torch.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "import torch\n"
+            "from tfidf_tpu_torch.cluster import coordination\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'tfidf_tpu', 'tools') and sys.modules[k] is not None),"
+            " coordination.threading is threading, threading.active_count(),"
+            " torch.cuda.is_initialized())\n")
+    r = subprocess.run([sys.executable, "-c", code, *HARNESS_MODULES],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[] True 1 False", r.stdout
 
 
 def _imported_roots(path):

@@ -7,7 +7,7 @@ commit every 500, 512 queries, plain paths.
   the same seed, in the same chunks, byte for byte, and its named shape
   is ``probe_msmarco.py``'s;
 * the stream leg (``chip_smoke.stream_phase``: streaming, quiesce, 1%
-  deletes and upserts, the scipy oracle) answers as a JAX
+  deletes and upserts, quiesce, the scipy oracle) answers as a JAX
   ``Engine(Config(index_mode="segments"))`` fed the same
   ``add_document_arrays`` loop, the same commits and the same mutations;
   the rebuild leg as the JAX default engine fed the same loop: top-10 ids
@@ -197,6 +197,15 @@ def test_named_shape_is_probe_msmarco_s(jax_bench):
 # the legs against the JAX package
 # --------------------------------------------------------------------------
 
+def _jax_quiesce(je) -> None:
+    for _ in range(32):
+        je.index.wait_for_merges()
+        je.commit()
+        if len(je.index._segments) <= je.config.max_segments \
+                and je.index._merge_future is None:
+            break
+
+
 def test_stream_leg_matches_jax_segments(no_card, drawn, tmp_path):
     corpus, queries = drawn
     res, ctx = P.stream_leg(corpus, queries, 0, SMALL, str(tmp_path / "w"),
@@ -207,12 +216,7 @@ def test_stream_leg_matches_jax_segments(no_card, drawn, tmp_path):
     je = _jax_engine(tmp_path, 5_000, index_mode="segments",
                      query_batch=cs.ST_BATCH)
     _jax_feed(je, corpus, 500)
-    for _ in range(32):           # the quiesce, as stream_phase does it
-        je.index.wait_for_merges()
-        je.commit()
-        if len(je.index._segments) <= je.config.max_segments \
-                and je.index._merge_future is None:
-            break
+    _jax_quiesce(je)              # the quiesce, as stream_phase does it
     for d in ctx["deleted"].tolist():
         assert je.delete(f"d{d}")
     f_off, f_ids, f_tfs, f_len = ctx["fresh"]
@@ -221,12 +225,40 @@ def test_stream_leg_matches_jax_segments(no_card, drawn, tmp_path):
                                      f_tfs[f_off[j]:f_off[j + 1]],
                                      float(f_len[j]))
     je.commit()
+    _jax_quiesce(je)              # and again after the mutation
     port = ctx["engine"].index.snapshot
     assert len(je.index.snapshot.segments) == len(port.segments)
     assert je.index.snapshot.n_docs_f == port.n_docs_f
     want = je.search_batch(served, k=cs.TOP_K)
     swaps = assert_same_hits(ctx["hits"], want)
     assert swaps <= 0.01 * sum(len(h) for h in want)
+
+
+def test_stream_phase_serves_the_state_it_leaves(no_card, drawn,
+                                                 monkeypatch):
+    """The merges that the mutation's commit starts are published before
+    8a serves: with one segment allowed and every merge in the
+    background, that commit always leaves a merge in flight, whose splice
+    reclaims the tombstones from df, N and avgdl. The engine that 8a
+    hands to 8b (which saves it and holds the restored copy's hits to
+    8a's to the bit) must answer as 8a served, once every merge is in."""
+    import functools
+    import tfidf_tpu_torch.utils.config as config_mod
+    monkeypatch.setattr(config_mod, "Config", functools.partial(
+        config_mod.Config, max_segments=1, sync_merge_nnz=0))
+    corpus, queries = drawn
+    served = P.split_queries(queries)[1]
+    _res, ctx = cs.stream_phase(
+        {"corpus": cs.first_docs(corpus, 2_000), "queries": served}, 0,
+        commit_every=SMALL["commit_every"], vocab=SMALL["vocab"],
+        avg_len=SMALL["avg_len"], device="cpu")
+    engine = ctx["engine"]
+    assert engine.config.max_segments == 1
+    engine.index.wait_for_merges()
+    engine.commit()
+    assert len(engine.index.snapshot.segments) == 1
+    again = engine.search_batch(served[:cs.ST_QUERIES], k=cs.TOP_K)
+    assert cs._hits_key(again) == cs._hits_key(ctx["hits"])
 
 
 def test_rebuild_leg_matches_jax_default(no_card, drawn, tmp_path):

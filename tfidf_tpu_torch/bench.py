@@ -550,11 +550,46 @@ def bench_mesh(rng, *, n_docs: int = MESH_DOCS, vocab: int = NS_VOCAB,
 # shared cluster-bench plumbing (configs 2 and 2 on the card)
 # --------------------------------------------------------------------------
 
-def _free_port() -> int:
+# ports free_ports has handed out in this process: a port drawn for one
+# node is not drawn again for another before the first binds it
+_DRAWN: set[int] = set()
+
+
+def free_ports(n: int) -> list[int]:
+    """``n`` distinct ports free on 127.0.0.1, below the kernel's
+    ephemeral range, none handed out before in this process. A port that
+    ``bind(0)`` hands out lies in that range, where another process's
+    outgoing connection can take it as its source port before the node it
+    was drawn for binds it (a fleet's worker exited so, "address already
+    in use", while the leader and the other worker booted); below the
+    range only a bind takes a port."""
+    import random
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except OSError:
+        low = 32768                 # Linux's default range starts here
+    candidates = [p for p in range(max(1024, low - 10_000), low)
+                  if p not in _DRAWN]
+    random.shuffle(candidates)
+    ports = []
+    for port in candidates:
+        with socket.socket() as s_:
+            try:
+                s_.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        ports.append(port)
+        if len(ports) == n:
+            _DRAWN.update(ports)
+            return ports
+    raise RuntimeError(f"no {n} free ports below the ephemeral range "
+                       f"({low})")
+
+
+def _free_port() -> int:
+    return free_ports(1)[0]
 
 
 def _http_get(url: str, timeout: float = 10.0) -> bytes:

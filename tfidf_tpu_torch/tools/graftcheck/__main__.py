@@ -15,12 +15,17 @@ Options:
                        (minus allowlisted ones) — for intentional,
                        reviewed re-pins only
     --root DIR         repo root (default: cwd)
+    --witness W        instead of the static passes, run pytest over the
+                       suite list of the lockdep, protocol or device
+                       witness (``pytest_witness``) under that witness
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
 import sys
 
 from tfidf_tpu_torch.tools.graftcheck.core import (
@@ -29,6 +34,20 @@ from tfidf_tpu_torch.tools.graftcheck.core import (
 ANALYZERS = ("lockgraph", "jitpurity", "devicecheck", "registry_drift",
              "resilience", "wallclock", "protocol", "deadsymbols",
              "storageseam")
+
+
+def run_witness(name: str, root: str) -> int:
+    """pytest over ``name``'s suite list with the plugin and its variable
+    set, in one process (no xdist); the exit status is pytest's."""
+    from tfidf_tpu_torch.tools.graftcheck import pytest_witness as pw
+    suites = {"lockdep": pw.LOCKDEP_SUITES, "protocol": pw.PROTOCOL_SUITES,
+              "device": pw.DEVICE_SUITES}[name]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env[pw.ENV[name]] = "1"
+    cmd = [sys.executable, "-m", "pytest", *suites, "-q", "-m", "not slow",
+           "-p", "no:cacheprovider", "-p", "no:xdist",
+           "-p", "tfidf_tpu_torch.tools.graftcheck.pytest_witness"]
+    return subprocess.run(cmd, cwd=root, env=env).returncode
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -42,7 +61,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--graph", action="store_true")
     ap.add_argument("--write-baseline", action="store_true")
+    ap.add_argument("--witness", choices=("lockdep", "protocol", "device"))
     args = ap.parse_args(argv)
+    if args.witness:
+        return run_witness(args.witness, args.root)
 
     only = [a for a in args.only.split(",") if a]
     bad = sorted(set(only) - set(ANALYZERS))

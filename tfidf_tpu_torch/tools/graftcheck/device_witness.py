@@ -87,12 +87,21 @@ _TLS = threading.local()        # .dir: direction of the enclosing copy
 
 def _port_site(frame) -> tuple[str, str] | None:
     """(module, function) of the first ``tfidf_tpu_torch`` frame at or
-    above ``frame`` (the tools subpackage excluded)."""
+    above ``frame`` (the tools subpackage excluded). A function nested in
+    another (a closure, a local helper) is named by its outermost
+    enclosing function, the unit the static cone reasons about: a helper
+    ``h`` inside ``export_snapshot_arrays`` belongs to that stage."""
     while frame is not None:
         name = frame.f_globals.get("__name__", "")
         if name.startswith(_PACKAGE + ".") and not name.startswith(
                 _TOOLS):
-            return name[len(_PACKAGE) + 1:], frame.f_code.co_name
+            code = frame.f_code
+            qual = getattr(code, "co_qualname", code.co_name)
+            if ".<locals>." in qual:
+                fn = qual.split(".<locals>.")[0].rsplit(".", 1)[-1]
+            else:
+                fn = code.co_name
+            return name[len(_PACKAGE) + 1:], fn
         frame = frame.f_back
     return None
 

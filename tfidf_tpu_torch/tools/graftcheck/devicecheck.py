@@ -91,7 +91,8 @@ CORPUS_ATTRS = {
 SANITIZERS = {"next_capacity"}
 
 # the hot serving cone roots: searcher dispatch, pipeline dispatch/fetch
-# stages, tiering upload ring, mesh scatter paths. A missing root whose
+# stages, tiering upload ring, mesh scatter paths, and the host fallback
+# that serves while the device is sick. A missing root whose
 # module still exists is a finding — a rename must update this list, not
 # silently shrink the cone. `df_host` is a root of its own because it is
 # reached from the tiered dispatch via PROPERTY access, which call
@@ -114,6 +115,8 @@ CONE_ROOTS = (
     "parallel.mesh_index.MeshSearcher._dispatch_chunk",
     "parallel.mesh_index.MeshSearcher._finish_chunk",
     "parallel.mesh_index.MeshSearcher._rank_all",
+    "engine.compute_health.HostFallbackScorer.search",
+    "engine.compute_health.HostFallbackScorer.search_arrays",
 )
 
 # d2h lives HERE by construction: the pipeline's named fetch stage and
