@@ -57,6 +57,47 @@ VIEW_READ = ("a placement follower re-reads the placement znode only when "
              "(ROADMAP queue C); a server without the `unless` key sends "
              "the data, so the wire stays the reference's")
 
+LAST_REPLICA = ("a name that loses its last replica cancels every pending "
+                "delete of it and the leader remembers its last holders: a "
+                "copy scheduled away by an earlier death may be the only one "
+                "left, and the reference deleted it on rejoin and called the "
+                "other survivors ghosts, losing acked writes in the "
+                "partition chaos job (ROADMAP queue C); a client delete of "
+                "the name still reaches every remembered holder. The "
+                "placement bytes keep their format")
+
+REJOIN_CLOSE = ("a failed session-expiry rejoin attempt closes its own "
+                "session (its expiry then starts no second rejoin): left "
+                "open, its heartbeat kept the attempt's registry entry and "
+                "election candidate alive beside the next attempt's, the "
+                "node listed twice and an orphan candidate first in line, "
+                "in the partition chaos job (ROADMAP queue C)")
+
+DELETING = ("a load (this node re-elected) skips the names of a client "
+            "delete whose durable flush has not returned: the reference "
+            "merged them back from the not-yet-rewritten znode and the "
+            "flush then wrote them back, resurrecting an acked delete in "
+            "the partition chaos job (ROADMAP queue C)")
+TOMBSTONE = ("the leader remembers the names client deletes removed in its "
+             "tenure: a copy that shows up later (a worker away at the "
+             "time, an ex-leader's engine) is a ghost, never an orphan to "
+             "adopt or re-place; the reference adopted or re-placed such "
+             "copies, resurrecting acked deletes in the partition chaos "
+             "job (ROADMAP queue C); a new upload of the name, or a loaded "
+             "map that holds it, lifts the tombstone")
+
+DELETE_FENCE = ("a client delete is acknowledged only while its leader still "
+                "leads after the durable flush: a deposed leader acked a "
+                "delete whose flush landed after a successor had loaded the "
+                "map, and the successor adopted the copies back (ROADMAP "
+                "queue C)")
+
+RESIDUE_AFTER_LOAD = ("the residue pass waits for the new leader's map load "
+                      "(persistence enabled): the reference's ran on the "
+                      "empty map first and adopted every copy it found, an "
+                      "acked delete's leftovers included, in the partition "
+                      "chaos job (ROADMAP queue C)")
+
 # module (relative to the package) -> list of hunks
 HUNKS = {
     "cluster/coordination.py": [
@@ -114,6 +155,103 @@ HUNKS = {
 """, VIEW_READ),
     ],
     "cluster/placement.py": [
+        ("""        self._confirmed: dict[str, set[str]] = {}
+        self._inflight""", """        self._confirmed: dict[str, set[str]] = {}
+        self._dark: dict[str, set[str]] = {}
+        self._inflight""", LAST_REPLICA),
+        ("""            self._confirmed.clear()
+            self.migrations.clear()
+""", """            self._confirmed.clear()
+            self._dark.clear()
+            self.migrations.clear()
+""", LAST_REPLICA),
+        ("""                    del self.replicas[name]
+                    self._confirmed.pop(name, None)
+                    lost.append(name)
+""", """                    del self.replicas[name]
+                    self._confirmed.pop(name, None)
+                    lost.append(name)
+            for name in lost:
+                dark = self._dark.setdefault(name, set())
+                dark.add(worker)
+                for w, ns in list(self.moved.items()):
+                    if name in ns:
+                        dark.add(w)
+                        ns.discard(name)
+                        if not ns:
+                            del self.moved[w]
+""", LAST_REPLICA),
+        ("""                reps = self.replicas.pop(name, None)
+                if reps is None and not also:
+                    continue
+                conf = self._confirmed.pop(name, set())
+                targets = set(also)
+""", """                reps = self.replicas.pop(name, None)
+                dark = self._dark.pop(name, ())
+                if reps is None and not also and not dark:
+                    continue
+                conf = self._confirmed.pop(name, set())
+                targets = set(also) | set(dark)
+""", LAST_REPLICA),
+        ("""                    self._confirmed[name] = {worker}
+                    orphans.append(name)
+""", """                    self._confirmed[name] = {worker}
+                    self._dark.pop(name, None)
+                    orphans.append(name)
+""", LAST_REPLICA),
+        ("""        self._inflight: dict[tuple[str, str], int] = {}
+""", """        self._deleting: set[str] = set()
+        self._tombstones: set[str] = set()
+        self._inflight: dict[tuple[str, str], int] = {}
+""", DELETING),
+        ("""        held = self.replicas.get(name)
+        if held:
+            live_held""", """        self._tombstones.discard(name)
+        held = self.replicas.get(name)
+        if held:
+            live_held""", TOMBSTONE),
+        ("""            self._dark.clear()
+            self.migrations.clear()
+""", """            self._dark.clear()
+            self._tombstones.clear()
+            self.migrations.clear()
+""", TOMBSTONE),
+        ("""        with self.lock:
+            for name in names:
+                reps = self.replicas.pop(name, None)
+""", """        with self.lock:
+            self._deleting.update(names)
+            self._tombstones.update(names)
+            for name in names:
+                reps = self.replicas.pop(name, None)
+""", DELETING),
+        ("""            for name, ws in loaded.items():
+                if name not in self.replicas:
+""", """            for name, ws in loaded.items():
+                if name in self._deleting:
+                    continue
+                self._tombstones.discard(name)
+                if name not in self.replicas:
+""", DELETING),
+        ("""                pending_anywhere = any(name in ns
+                                       for ns in self.moved.values())
+""", """                pending_anywhere = name in self._tombstones or any(
+                    name in ns for ns in self.moved.values())
+""", TOMBSTONE),
+        ("""                if name in self.replicas:
+                    continue
+                if any(name in ns for ns in self.moved.values()):
+""", """                if name in self.replicas or name in self._tombstones:
+                    continue
+                if any(name in ns for ns in self.moved.values()):
+""", TOMBSTONE),
+        ("""    def add_replica(self, name: str, worker: str) -> bool:
+""", """    def delete_settled(self, names) -> None:
+        with self.lock:
+            self._deleting.difference_update(names)
+
+    def add_replica(self, name: str, worker: str) -> bool:
+""", DELETING),
         ("""                                            NoNodeError)
 """, """                                            NoNodeError,
                                             data_digest)
@@ -151,6 +289,62 @@ HUNKS = {
 """, VIEW_READ),
     ],
     "cluster/node.py": [
+        ("""        while not self._stopping:
+            try:
+                coord = self._coord_factory()
+""", """        while not self._stopping:
+            coord = None
+            attempt = {"live": True}
+
+            def on_expiry(ev, attempt=attempt) -> None:
+                if attempt["live"]:
+                    self._on_session_event(ev)
+            try:
+                coord = self._coord_factory()
+""", REJOIN_CLOSE),
+        ("""                self.election = LeaderElection(coord, callback=self)
+                coord.on_session_event(self._on_session_event)
+""", """                self.election = LeaderElection(coord, callback=self)
+                coord.on_session_event(on_expiry)
+""", REJOIN_CLOSE),
+        ("""        if scheduled and not self._delete_flush_ok():
+            raise RuntimeError(
+                "delete not acknowledged: placement removal could not "
+                "be made durable (the doc is gone from THIS leader's "
+                "results, but a failover could resurrect it)")
+""", """        try:
+            if scheduled and not self._delete_flush_ok():
+                raise RuntimeError(
+                    "delete not acknowledged: placement removal could not "
+                    "be made durable (the doc is gone from THIS leader's "
+                    "results, but a failover could resurrect it)")
+            if scheduled and not self.is_leader():
+                raise RuntimeError(
+                    "delete not acknowledged: leadership was lost while "
+                    "the removal was made durable")
+        finally:
+            self.placement.delete_settled(names)
+""", DELETING + "; " + DELETE_FENCE),
+        ("""        live = set(self.registry.get_all_service_addresses())
+        if not live:
+            return {}
+        protected = self.placement.migrating_names()
+""", """        if not self.placement._persist_enabled:
+            return {}
+        live = set(self.registry.get_all_service_addresses())
+        if not live:
+            return {}
+        protected = self.placement.migrating_names()
+""", RESIDUE_AFTER_LOAD),
+        ("""                log.warning("rejoin attempt failed", err=repr(e))
+""", """                log.warning("rejoin attempt failed", err=repr(e))
+                if coord is not None:
+                    attempt["live"] = False
+                    try:
+                        coord.close()
+                    except Exception:
+                        pass
+""", REJOIN_CLOSE),
         ("engine: Engine | None = None, coord_factory=None) -> None:",
          "engine: Engine | None = None, coord_factory=None,\n"
          "                 device=None) -> None:",

@@ -955,6 +955,12 @@ class SearchNode(ScatterReadPlane):
         as a worker)."""
         delay = 0.2
         while not self._stopping:
+            coord = None
+            attempt = {"live": True}
+
+            def on_expiry(ev, attempt=attempt) -> None:
+                if attempt["live"]:
+                    self._on_session_event(ev)
             try:
                 coord = self._coord_factory()
                 self.coord = coord
@@ -962,7 +968,7 @@ class SearchNode(ScatterReadPlane):
                 self.registry = ServiceRegistry(
                     coord, on_change=self._on_membership_change)
                 self.election = LeaderElection(coord, callback=self)
-                coord.on_session_event(self._on_session_event)
+                coord.on_session_event(on_expiry)
                 self.election.volunteer_for_leadership()
                 self.election.reelect_leader()
                 if self.placement_follower is not None:
@@ -992,6 +998,18 @@ class SearchNode(ScatterReadPlane):
                 return
             except Exception as e:
                 log.warning("rejoin attempt failed", err=repr(e))
+                if coord is not None:
+                    # the failed attempt's session may already hold an
+                    # election candidate or a registry entry; left open,
+                    # its heartbeat keeps them alive beside the next
+                    # attempt's (the node listed twice, an orphan first
+                    # in the election line). Its closing is no expiry
+                    # of this node's session: no second rejoin.
+                    attempt["live"] = False
+                    try:
+                        coord.close()
+                    except Exception:
+                        pass
                 time.sleep(delay)
                 delay = min(delay * 2, 5.0)
 
@@ -1818,6 +1836,10 @@ class SearchNode(ScatterReadPlane):
         self-paced in the sweep loop by ``residue_sweep_ms``."""
         if self._stopping or not self.config.shard_recovery:
             return {}
+        if not self.placement._persist_enabled:
+            # a new leader before its map is loaded: every copy would
+            # read as an orphan, deleted names' leftovers included
+            return {}
         live = set(self.registry.get_all_service_addresses())
         if not live:
             return {}
@@ -2359,11 +2381,20 @@ class SearchNode(ScatterReadPlane):
         # fresh scatter (and the fenced push loop below can stall for
         # seconds against a partitioned worker)
         self.bump_result_generation()
-        if scheduled and not self._delete_flush_ok():
-            raise RuntimeError(
-                "delete not acknowledged: placement removal could not "
-                "be made durable (the doc is gone from THIS leader's "
-                "results, but a failover could resurrect it)")
+        try:
+            if scheduled and not self._delete_flush_ok():
+                raise RuntimeError(
+                    "delete not acknowledged: placement removal could not "
+                    "be made durable (the doc is gone from THIS leader's "
+                    "results, but a failover could resurrect it)")
+            if scheduled and not self.is_leader():
+                # a successor elected before the flush landed loaded the
+                # map without it and may adopt the copies back
+                raise RuntimeError(
+                    "delete not acknowledged: leadership was lost while "
+                    "the removal was made durable")
+        finally:
+            self.placement.delete_settled(names)
         for n in names:
             try:
                 path = self._store_path(n)

@@ -87,6 +87,21 @@ class PlacementMap:
         # from that worker until the delete lands.
         self.moved: dict[str, set[str]] = {}
         self._confirmed: dict[str, set[str]] = {}
+        # name -> its last holders, for names that lost their LAST
+        # replica to worker deaths (leader memory only): their copies
+        # may be the only ones left, so no delete is pending on them,
+        # and a client delete must still reach them when they return
+        self._dark: dict[str, set[str]] = {}
+        # names of client deletes whose durable flush has not returned:
+        # a load in that window (a re-election of this node) must not
+        # merge them back from the not-yet-rewritten znode
+        self._deleting: set[str] = set()
+        # names client deletes removed in this tenure: a copy that shows
+        # up later (on a worker away at the time, in an ex-leader's
+        # engine) is a ghost to delete, never an orphan to adopt or
+        # re-place; a new upload of the name, or a loaded map that holds
+        # it again, lifts the tombstone
+        self._tombstones: set[str] = set()
         self._inflight: dict[tuple[str, str], int] = {}
         # live-migration records (cluster/rebalance.py): migration id ->
         # {"source", "targets": {name: [urls]}, "phase", "kind"}. Names
@@ -149,6 +164,7 @@ class PlacementMap:
         name claims the ``r`` least-loaded candidates. Tracks one
         in-flight upload leg per returned worker. Returns
         ``(replicas, is_new_claim)``."""
+        self._tombstones.discard(name)
         held = self.replicas.get(name)
         if held:
             live_held = tuple(w for w in held if w in workers)
@@ -215,6 +231,8 @@ class PlacementMap:
             self.replicas.clear()
             self.moved.clear()
             self._confirmed.clear()
+            self._dark.clear()
+            self._tombstones.clear()
             self.migrations.clear()
             self.draining.clear()
             self._owner_cache = None
@@ -291,6 +309,21 @@ class PlacementMap:
                     del self.replicas[name]
                     self._confirmed.pop(name, None)
                     lost.append(name)
+            # a name that lost its LAST replica keeps no pending delete
+            # anywhere: an earlier death's copy, scheduled away while
+            # this worker still held the name, may now be the only one
+            # left (a rejoin would delete it, and the residue pass would
+            # call every other surviving copy a ghost). Its holders are
+            # remembered, so a client delete still reaches them.
+            for name in lost:
+                dark = self._dark.setdefault(name, set())
+                dark.add(worker)
+                for w, ns in list(self.moved.items()):
+                    if name in ns:
+                        dark.add(w)
+                        ns.discard(name)
+                        if not ns:
+                            del self.moved[w]
             if kept or lost or was_draining:
                 self.gen += 1
                 self._mark_dirty_locked()
@@ -356,12 +389,15 @@ class PlacementMap:
         out: dict[str, list[str]] = {}
         changed = False
         with self.lock:
+            self._deleting.update(names)
+            self._tombstones.update(names)
             for name in names:
                 reps = self.replicas.pop(name, None)
-                if reps is None and not also:
+                dark = self._dark.pop(name, ())
+                if reps is None and not also and not dark:
                     continue
                 conf = self._confirmed.pop(name, set())
-                targets = set(also)
+                targets = set(also) | set(dark)
                 targets.update(w for w in reps or () if w in conf)
                 for w in targets:
                     self.moved.setdefault(w, set()).add(name)
@@ -372,6 +408,12 @@ class PlacementMap:
                 self.gen += 1
                 self._mark_dirty_locked()
         return out
+
+    def delete_settled(self, names) -> None:
+        """The durable flush of a client delete of ``names`` returned,
+        either way: a later load may merge them again."""
+        with self.lock:
+            self._deleting.difference_update(names)
 
     def add_replica(self, name: str, worker: str) -> bool:
         """Repair/migration confirmed a new copy of ``name`` on
@@ -439,11 +481,12 @@ class PlacementMap:
                 reps = self.replicas.get(name)
                 if reps is not None and worker in reps:
                     continue          # the map credits this copy
-                pending_anywhere = any(name in ns
-                                       for ns in self.moved.values())
+                pending_anywhere = name in self._tombstones or any(
+                    name in ns for ns in self.moved.values())
                 if reps is None and not pending_anywhere:
                     self.replicas[name] = (worker,)
                     self._confirmed[name] = {worker}
+                    self._dark.pop(name, None)
                     orphans.append(name)
                 else:
                     self.moved.setdefault(worker, set()).add(name)
@@ -466,7 +509,7 @@ class PlacementMap:
             for name in names:
                 if name in protected or name in inflight_names:
                     continue
-                if name in self.replicas:
+                if name in self.replicas or name in self._tombstones:
                     continue
                 if any(name in ns for ns in self.moved.values()):
                     continue
@@ -922,6 +965,9 @@ class PlacementMap:
         with self.lock:
             n = 0
             for name, ws in loaded.items():
+                if name in self._deleting:
+                    continue
+                self._tombstones.discard(name)
                 if name not in self.replicas:
                     self.replicas[name] = ws
                     self._confirmed[name] = set(ws)
