@@ -1168,12 +1168,80 @@ def compare_packed(a, b, q64, host, what: str) -> dict:
             "ids_differ_in_near_ties": swaps}
 
 
+TIE_ROWS = 130_000              # the tie column: rows of phase 3d's column
+TIE_CHUNK = 6_000              # its chunk: doc_cap 2^17 / 6,000 leaves a
+#                                clamped tail chunk (starts at 125,072)
+TIE_COPIES = (18_017, 44_999, 59_999, 60_000, 125_500, 126_000, 127_777,
+              129_999)         # inside full chunks, either side of a chunk
+#                                boundary, re-read by the clamped tail, and
+#                                inside the tail's own rows (last live row)
+TIE_QUERIES = 64
+
+
+def dense_ties(engine, query: str) -> dict:
+    """A column where one row is copied to ``TIE_COPIES`` (inside a full
+    chunk, across a chunk boundary, inside the clamped tail chunk), served
+    on the card. Required: the copies score identical bits for every
+    query, equal across every copy in the full score matrix too, and the
+    lower row wins each tie (the copies lead each top-k in row order).
+    The column's own ``search_batch`` serves ``query``, whose embedding
+    IS the copied row; ``TIE_QUERIES`` queries near that row go through the
+    same ``packed_dense_topk`` call at the column's chunk."""
+    from tfidf_tpu_torch.engine.dense import EmbeddingColumn
+    from tfidf_tpu_torch.ops.dense import dense_scores, packed_dense_topk
+    from tfidf_tpu_torch.ops.topk import fetch_packed, unpack_topk
+    src = engine.dense
+    counts = engine.analyzer.counts(query)
+    target = src.embedder.embed_query(counts).astype(np.float32)
+    rows = src._emb_dev[:TIE_ROWS, :src.dim].cpu().numpy()
+    rows[list(TIE_COPIES)] = target
+    col = EmbeddingColumn(src.embedder, chunk=TIE_CHUNK, device="cuda")
+    col.install_arrays(rows, [f"t{i:07d}" for i in range(TIE_ROWS)])
+    col.commit()
+    copies = list(TIE_COPIES)
+    served = col.search_batch([counts], TOP_K)[0]
+    got = [int(n[1:]) for n, _ in served[:len(copies)]]
+    bits = {np.float32(v).tobytes() for _, v in served[:len(copies)]}
+    if got != copies or len(bits) != 1:
+        raise SystemExit(f"dense ties: the served copies {served} are not "
+                         f"{copies} at one score")
+    rng = np.random.default_rng(SEED + 16)
+    qh = np.zeros((TIE_QUERIES, col._emb_dev.shape[1]), np.float32)
+    qh[:, :col.dim] = target + 0.02 * rng.standard_normal(
+        (TIE_QUERIES, col.dim)).astype(np.float32)
+    qh /= np.linalg.norm(qh, axis=1, keepdims=True)
+    q = torch.from_numpy(qh).cuda()
+    vals, ids = unpack_topk(fetch_packed(packed_dense_topk(
+        q, col._emb_dev, TIE_ROWS, k=TOP_K, chunk=col._chunk)))
+    lead = ids[:, :len(copies)]
+    if (lead != np.array(copies)).any():
+        bad = np.flatnonzero((lead != np.array(copies)).any(axis=1))
+        raise SystemExit(f"dense ties: {len(bad)} of {TIE_QUERIES} queries "
+                         f"do not rank the copies first in row order: "
+                         f"{ids[bad[0]].tolist()}")
+    lv = vals[:, :len(copies)].view(np.int32)
+    if (lv != lv[:, :1]).any():
+        raise SystemExit("dense ties: copies score different bits in the "
+                         "served top-k")
+    full = dense_scores(q, col._emb_dev, TIE_ROWS, chunk=col._chunk)
+    cols = full[:, copies].view(torch.int32)
+    differ = int((cols != cols[:, :1]).any(dim=1).sum())
+    if differ:
+        raise SystemExit(f"dense ties: {differ} of {TIE_QUERIES} rows of "
+                         f"the full score matrix score the copies apart")
+    del col, full
+    return {"rows": TIE_ROWS, "chunk": TIE_CHUNK, "copies": copies,
+            "queries": TIE_QUERIES + 1, "identical_bits": True,
+            "lower_row_first": True}
+
+
 def dense_bits(engine, batch) -> dict:
     """On the first 8 queries of ``batch``: the served top-k against the
     one-shot top-k from the same chunk products (bitwise, required),
     against one full-column matmul and against chunks of 2^12 rows; the
     8 queries alone (B=8) against inside the 512-query batch; the batch
-    run twice (all recorded)."""
+    run twice (all recorded); the tie column (:func:`dense_ties`,
+    required)."""
     from tfidf_tpu_torch.ops.dense import (chunk_rows, dense_scores,
                                            packed_dense_topk)
     from tfidf_tpu_torch.ops.topk import fetch_packed, packed_topk
@@ -1208,7 +1276,8 @@ def dense_bits(engine, batch) -> dict:
             "b8_vs_inside_b512": compare_packed(
                 mine, big[:8], q64, host, "B=8 vs B=512"),
             "b512_twice": compare_packed(
-                big, served(q512), q64, host, "twice")}
+                big, served(q512), q64, host, "twice"),
+            "ties": dense_ties(engine, batch[0])}
 
 
 def dense_breakdown(engine, batch) -> dict:
@@ -3036,12 +3105,13 @@ FLEET_DEVICE = "cuda"      # every serve process's --device
 FLEET_CLIENTS = 64         # concurrent client threads, one query a POST
 # the windows and the uploads were 4,096 / 2,048 queries and 2,000 docs
 # until the mesh phase joined the run, then 2,048 / 1,024 and 1,000 until
-# the bench phase did: halved each time to keep every phase inside the
-# run's time limit
-FLEET_SPARSE = 1024        # sparse queries through the leader
-FLEET_STAGED = 512         # dense, hybrid (rrf), router queries, and the
+# the bench phase did, then 1,024 / 512 and 500 until the run neared the
+# time limit on a slower host: cut each time to keep every phase inside
+# the run's time limit (reading uploads back runs at ~10-15 q/s)
+FLEET_SPARSE = 512         # sparse queries through the leader
+FLEET_STAGED = 256         # dense, hybrid (rrf), router queries, and the
                            # replies of each mode held to the oracles
-FLEET_UPLOADS = 500        # new documents through /leader/upload-batch
+FLEET_UPLOADS = 100        # new documents through /leader/upload-batch
 FLEET_UPLOAD_CHUNK = 500   # documents per upload-batch request (the CLI's)
 FLEET_BOOT_S = 300.0       # deadline for the fleet to serve the corpus
 # the deployment: the default Config with the reference's single-copy
@@ -3150,6 +3220,15 @@ class Fleet:
     def tail(self, tag: str, n: int = 30) -> str:
         with open(os.path.join(self.logs, f"{tag}.log")) as f:
             return "".join(f.readlines()[-n:])
+
+    def boot_split(self, tag: str) -> dict:
+        """The ``boot split`` line a serve node printed once it was up."""
+        with open(os.path.join(self.logs, f"{tag}.log")) as f:
+            for line in f:
+                if line.startswith("boot split "):
+                    return json.loads(line[len("boot split "):])
+        raise SystemExit(f"fleet: {tag} printed no boot split:\n"
+                         f"{self.tail(tag)}")
 
     def check_alive(self) -> None:
         for tag, (p, _, _) in self.procs.items():
@@ -3564,7 +3643,7 @@ def fleet_hybrid_check(hybrid, sparse, dense, s_top, d_top, s_swaps,
 # phase 13: the compute chaos job on phase 7's fleet, and a kill -9
 # --------------------------------------------------------------------------
 
-CHAOS_POOL = 256           # north-star queries phase 7 did not send
+CHAOS_POOL = 128           # north-star queries phase 7 did not send
 CHAOS_CLIENTS = 8          # closed-loop client threads over the pool
 CHAOS_POISON_UNIQ = 6      # the poison rule's min_uniq (distinct terms)
 CHAOS_PROBES = 32          # innocent queries sent while the poison is held
@@ -4057,6 +4136,13 @@ def fleet_phase(data, shards, seed: int, work: str, out_dir: str) -> dict:
             f"adopted {n_docs} docs at {res['fleet_serving_s']:.1f}s, "
             f"every placement view loaded at {res['views_synced_s']:.1f}s")
 
+        # each serve node's boot split (tfidf_tpu_torch/boot.py), a line
+        # of its own per boot
+        res["boot_split"] = {}
+        for tag in ("leader", "worker0", "worker1"):
+            res["boot_split"][tag] = fleet.boot_split(tag)
+            log(f"[boot] {tag} {json.dumps(res['boot_split'][tag])}")
+
         rng = np.random.default_rng(seed + 7)
         queries = make_queries(rng, NS_VOCAB, FLEET_SPARSE)
         staged = queries[:FLEET_STAGED]
@@ -4466,6 +4552,26 @@ def modes_phase(work: str, device=None, cuts: dict = MODE_CUTS) -> dict:
     return res
 
 
+def share_bytecode(work: str) -> subprocess.Popen:
+    """One bytecode cache, under ``work``, for every process the run
+    starts from here on (the fleets of phases 7, 10 and 11). The card's
+    image sets ``PYTHONDONTWRITEBYTECODE`` and ships no ``__pycache__``,
+    so each ``python -m tfidf_tpu_torch`` process compiled torch from
+    source: ``import torch`` took 6.3-7.0 s there, 4.5-5.4 s reading a
+    cache (``probe_import_torch.py``), of a node's 8-17 s boot (the boot
+    split, phase 7). A child started now imports what a node imports and
+    writes the cache while phases 5-9 run; the caller waits for it before
+    the fleet."""
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(
+        os.path.abspath(work), "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    return subprocess.Popen(
+        [sys.executable, "-c", "import tfidf_tpu_torch.cli, "
+         "tfidf_tpu_torch.cluster.node, tfidf_tpu_torch.cluster.router, "
+         "tfidf_tpu_torch.bench_modes"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=SEED)
@@ -4546,6 +4652,7 @@ def main() -> int:
     # ---- phases 5-6: the worker engine, the durable text path ----
     shutil.rmtree(args.work, ignore_errors=True)
     os.makedirs(args.work)
+    warm = share_bytecode(args.work)
     try:
         worker = {"checkpoint": checkpoint_phase(ctx, main_res, args.work)}
         worker["compute"] = compute_phase(ctx)
@@ -4573,6 +4680,8 @@ def main() -> int:
         mesh = mesh_phases(data, args.seed)
         done("9")
         # ---- phase 7: the fleet, one process per node ----
+        if warm.wait(timeout=600) != 0:
+            raise SystemExit(f"bytecode warm-up exited {warm.returncode}")
         fleet = fleet_phase(data, shards, args.seed, args.work, args.out)
         del data, shards
         torch.cuda.empty_cache()
@@ -4585,6 +4694,9 @@ def main() -> int:
         modes = modes_phase(args.work)
         done("11")
     finally:
+        if warm.poll() is None:
+            warm.kill()
+            warm.wait()
         shutil.rmtree(args.work, ignore_errors=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
 

@@ -46,6 +46,10 @@ _BENCH_MODES = '''    g = s.add_mutually_exclusive_group()
 CLI_SIGTERM = ("serve/router/coordinator park in bounded waits: a SIGTERM "
                "handled on another thread does not interrupt a blocking "
                "Event.wait, and the process never stopped (ROADMAP queue C)")
+CLI_BOOT = ("`serve` times its boot (tfidf_tpu_torch/boot.py): the torch "
+            "import, the CUDA context and the kernel library's first load "
+            "happen as steps of their own, each timed, and the node prints "
+            "one `boot split {...}` line once it is up")
 CLI_MESH = ("multi-host (`distributed`): the process group's backend "
             "follows the CLI's device (NCCL on the card, gloo with --device "
             "cpu), so the device is resolved first and passed on")
@@ -97,6 +101,16 @@ RESIDUE_AFTER_LOAD = ("the residue pass waits for the new leader's map load "
                       "empty map first and adopted every copy it found, an "
                       "acked delete's leftovers included, in the partition "
                       "chaos job (ROADMAP queue C)")
+
+MOVED_AT_CONFIRM = ("a re-placement of a dead worker's names records each "
+                    "name's pending delete on that worker in the same "
+                    "locked step that confirms its new copy (leg_success "
+                    "moved_from): the reference confirmed the copies, "
+                    "wrote the store, and only then noted the moves, so "
+                    "a reader between the two saw the recovery done with "
+                    "no delete pending, and the resilience rejoin chaos "
+                    "job took that window for convergence (ROADMAP queue "
+                    "C)")
 
 # module (relative to the package) -> list of hunks
 HUNKS = {
@@ -155,6 +169,12 @@ HUNKS = {
 """, VIEW_READ),
     ],
     "cluster/placement.py": [
+        ('    def leg_success(self, name: str, worker: str) -> None:\n        """One upload leg accepted by ``worker``: the placement of\n        ``name`` on it is confirmed (and becomes persistable AND\n        ownable — confirmation changes the owner-candidate set, so the\n        generation bumps)."""\n        with self.lock:',
+         '    def leg_success(self, name: str, worker: str,\n                    moved_from: str | None = None) -> bool:\n        """One upload leg accepted by ``worker``: the placement of\n        ``name`` on it is confirmed (and becomes persistable AND\n        ownable — confirmation changes the owner-candidate set, so the\n        generation bumps). ``moved_from``: the leg re-places the name\n        away from that (dead) worker; its pending delete there is\n        recorded in the same step, under the same rule as\n        :meth:`note_moved`, so no reader sees the new copy without the\n        old one\'s pending delete. Returns whether it was recorded."""\n        noted = False\n        with self.lock:',
+         MOVED_AT_CONFIRM),
+        ('            if worker not in reps:\n                self.replicas[name] = reps + (worker,)\n                self.gen += 1\n            self._unmove_locked(worker, name)\n            self._mark_dirty_locked()\n\n    def reset_for_follower(self) -> None:',
+         '            if worker not in reps:\n                self.replicas[name] = reps + (worker,)\n                self.gen += 1\n            self._unmove_locked(worker, name)\n            if moved_from is not None \\\n                    and moved_from not in self.replicas[name]:\n                moved = self.moved.setdefault(moved_from, set())\n                if name not in moved:\n                    moved.add(name)\n                    self.gen += 1\n                    noted = True\n            self._mark_dirty_locked()\n        return noted\n\n    def reset_for_follower(self) -> None:',
+         MOVED_AT_CONFIRM),
         ("""        self._confirmed: dict[str, set[str]] = {}
         self._inflight""", """        self._confirmed: dict[str, set[str]] = {}
         self._dark: dict[str, set[str]] = {}
@@ -289,6 +309,30 @@ HUNKS = {
 """, VIEW_READ),
     ],
     "cluster/node.py": [
+        ('    def _replace_batch(self, docs: list[dict], old_worker: str) -> int:\n        try:\n            resp = self.leader_upload_batch(docs)',
+         '    def _replace_batch(self, docs: list[dict], old_worker: str) -> int:\n        try:\n            resp = self.leader_upload_batch(docs, moved_from=old_worker)',
+         MOVED_AT_CONFIRM),
+        ('        not_placed = {s["name"] for s in resp.get("skipped", ())}\n        not_placed.update(resp.get("failed", ()))\n        return self._note_moved(\n            [d["name"] for d in docs if d["name"] not in not_placed],\n            old_worker)',
+         '        return resp["moved"]',
+         MOVED_AT_CONFIRM),
+        ('    def _leg_succeeded(self, name: str, worker: str,\n                       nbytes: int) -> None:',
+         '    def _leg_succeeded(self, name: str, worker: str, nbytes: int,\n                       moved_from: str | None = None) -> bool:',
+         MOVED_AT_CONFIRM),
+        ('        self.bump_result_generation()\n        self.placement.leg_success(name, worker)\n        with self._placement_lock:\n            sizes = self._size_cache[1]\n            if worker in sizes:\n                sizes[worker] += nbytes\n',
+         '        self.bump_result_generation()\n        noted = self.placement.leg_success(name, worker, moved_from)\n        with self._placement_lock:\n            sizes = self._size_cache[1]\n            if worker in sizes:\n                sizes[worker] += nbytes\n        return noted\n',
+         MOVED_AT_CONFIRM),
+        ('    def leader_upload_batch(self, docs: list[dict]) -> dict:',
+         '    def leader_upload_batch(self, docs: list[dict],\n                            moved_from: str | None = None) -> dict:',
+         MOVED_AT_CONFIRM),
+        ('        confirmed_names: set[str] = set()\n        for fut, (w, group) in futs.items():',
+         '        confirmed_names: set[str] = set()\n        moved = 0\n        for fut, (w, group) in futs.items():',
+         MOVED_AT_CONFIRM),
+        ('                self._leg_succeeded(name, w, len(d.get("text", "")))\n                confirmed_names.add(name)',
+         '                moved += self._leg_succeeded(\n                    name, w, len(d.get("text", "")), moved_from)\n                confirmed_names.add(name)',
+         MOVED_AT_CONFIRM),
+        ('        out = {"placed": placed}\n        if skipped_by_name:\n            out["skipped"] = list(skipped_by_name.values())',
+         '        out = {"placed": placed}\n        if moved_from is not None:\n            out["moved"] = moved\n        if skipped_by_name:\n            out["skipped"] = list(skipped_by_name.values())',
+         MOVED_AT_CONFIRM),
         ("""        while not self._stopping:
             try:
                 coord = self._coord_factory()
@@ -365,6 +409,11 @@ HUNKS = {
         ({"_device", "cmd_bench", "_apply_platform_override"},
          "the port's device choice replaces the JAX platform override; "
          + CLI_BENCH),
+        ("def cmd_serve(args) -> int:\n",
+         "def cmd_serve(args) -> int:\n"
+         "    from tfidf_tpu_torch.boot import BootClock\n"
+         "    clock = BootClock()\n"
+         "    clock.torch_import()\n", CLI_BOOT),
         ('''    if cfg.distributed:
         # multi-host mesh over DCN: must happen before any backend use so
         # jax.devices() spans the pod (auto-detected on TPU pods)
@@ -375,6 +424,7 @@ HUNKS = {
             process_id=(cfg.dist_process_id
                         if cfg.dist_process_id >= 0 else None))
 ''', '''    device = _device(args)
+    clock.device(device, kernel=cfg.use_pallas)
     if cfg.distributed:
         from tfidf_tpu_torch.parallel.mesh import initialize_multihost
         initialize_multihost(
@@ -383,10 +433,18 @@ HUNKS = {
             process_id=(cfg.dist_process_id
                         if cfg.dist_process_id >= 0 else None),
             device=device)
-''', CLI_MESH + "; " + CLI_DEVICE),
+''', CLI_MESH + "; " + CLI_DEVICE + "; " + CLI_BOOT),
         ("engine, meta = restore_checkpoint(ckpt_dir, cfg)",
          "engine, meta = restore_checkpoint(ckpt_dir, cfg, device=device)",
          "restore-at-boot onto the chosen device"),
+        ('''          f"coordinator {cfg.coordinator_address}", flush=True)
+
+    stop = threading.Event()
+''', '''          f"coordinator {cfg.coordinator_address}", flush=True)
+    print(clock.line(), flush=True)
+
+    stop = threading.Event()
+''', CLI_BOOT),
         ("node = SearchNode(cfg, coord_factory=factory, engine=engine).start(",
          "node = SearchNode(cfg, coord_factory=factory, engine=engine,\n"
          "                      device=device).start(",

@@ -13,12 +13,18 @@ counterparts in ``tfidf_tpu_torch``. Tolerances, with their reasons:
   inputs: at most 1 ulp apart;
 * chunked against one-shot within the port: bitwise. ``dense_scores`` is
   built from the served path's own per-chunk products, and on the CPU
-  torch's f32 matmul gives the same bits whatever the doc-axis length, so
-  columns with ``chunk=32`` and ``chunk=1<<14`` serve the same packed
-  bits too. (The JAX package's own test of this fails on this tree: XLA's
+  the port's product (``ops/dense.dense_product``, a fixed-order fused
+  multiply-add chain) gives the same bits whatever the doc-axis length,
+  so columns with ``chunk=32`` and ``chunk=1<<14`` serve the same packed
+  bits too. The chain is the order of the CPU BLAS's full-size GEMM
+  kernel, so a whole column's product also equals ``torch.matmul``'s. (The JAX package's own test of this fails on this tree: XLA's
   CPU matmul bits change with the doc-axis shape.)
-* ``search_dense_names`` across the packages: equal floats; both take the
-  same host numpy dots over the same vectors.
+* ``search_dense_names``: the port's scores equal, to the bit, an
+  independent emulation of its fixed-order product (``fma_chain``) over
+  the JAX package's own vectors; the JAX package's numpy dots are within
+  rel 1e-6 / abs 1e-7 of them (the dense top-k's tolerance above). They
+  were equal floats until the port's host product stopped taking numpy's
+  dots, whose bits change with how many rows share the product.
 """
 
 import numpy as np
@@ -38,7 +44,8 @@ from tfidf_tpu_torch.engine.dense import EmbeddingColumn
 from tfidf_tpu_torch.engine.embedder import (HashEmbedder, get_embedder,
                                              register_embedder)
 from tfidf_tpu_torch.engine.engine import Engine
-from tfidf_tpu_torch.ops.dense import (chunk_rows, dense_scores,
+from tfidf_tpu_torch.ops.dense import (chunk_product, chunk_rows,
+                                       dense_product, dense_scores,
                                        packed_dense_topk)
 from tfidf_tpu_torch.ops.topk import exact_topk, pack_topk
 from tfidf_tpu_torch.utils.config import Config
@@ -266,6 +273,115 @@ def test_columns_with_chunk_32_and_16384_serve_the_same_bits():
             == np.array([s for _, s in y], np.float32).tobytes()
 
 
+# ---------------------------------------------------------------------------
+# the CPU product: a score's bits depend on its two vectors only
+# ---------------------------------------------------------------------------
+
+def fma_chain(q, rows):
+    """Independent oracle of ``ops/dense.dense_product`` on the CPU: f32
+    ``[B, R]``, each element ``acc = fma(q[d], row[d], acc)`` for d in
+    index order from ``acc = 0``, every fma rounded once. In f64 the
+    product of two f32 is exact; the sum is split error-free (TwoSum)
+    and rounded to f32 by hand where the f64 sum sits on an f32 tie."""
+    q = np.asarray(q, np.float32).astype(np.float64)
+    rows = np.asarray(rows, np.float32).astype(np.float64)
+    acc = np.zeros((q.shape[0], rows.shape[0]), np.float32)
+    for d in range(q.shape[1]):
+        a = acc.astype(np.float64)
+        p = q[:, d:d + 1] * rows[None, :, d]
+        hi = a + p
+        bb = hi - a
+        lo = (a - (hi - bb)) + (p - bb)
+        r = hi.astype(np.float32)
+        other = np.nextafter(r, np.where(hi > r, np.inf, -np.inf)
+                             .astype(np.float32))
+        tie = (r.astype(np.float64) != hi) & (
+            (r.astype(np.float64) + other.astype(np.float64)) / 2 == hi)
+        # on a tie the f64 rounding error decides the side
+        toward = np.where(lo > 0, np.maximum(r, other),
+                          np.minimum(r, other))
+        acc = np.where(tie & (lo != 0), toward, r).astype(np.float32)
+    return acc
+
+
+def _unit_rows(rng, n, dim):
+    rows = rng.standard_normal((n, dim)).astype(np.float32)
+    return rows / np.linalg.norm(rows, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("dim", [64, 72, 128])
+def test_a_row_copied_to_every_position_scores_the_same_bits(dim):
+    """1- to 17-row chunk products: one row copied to every position
+    scores the same bits, equal to the fixed-order oracle."""
+    rng = np.random.default_rng(dim)
+    target = _unit_rows(rng, 1, dim)[0]
+    q = torch.from_numpy(_unit_rows(rng, 3, dim))
+    bits = {}
+    for n in range(1, 18):
+        rows = _unit_rows(rng, n, dim)
+        for pos in range(n):
+            e = rows.copy()
+            e[pos] = target
+            got = chunk_product(q, torch.from_numpy(e), 0, n).numpy()
+            bits.setdefault(got[:, pos].tobytes(), []).append((n, pos))
+    assert len(bits) == 1, [v[:3] for v in bits.values()]
+    assert next(iter(bits)) == fma_chain(q, target[None])[:, 0].tobytes()
+
+
+def test_a_rows_bits_are_the_same_in_every_prefix_and_batch():
+    """Every prefix of a column, every chunk offset, and a query alone
+    (batch 1) or inside a batch of 512 give each row the same bits."""
+    rng = np.random.default_rng(3)
+    emb = torch.from_numpy(_unit_rows(rng, 39, 64))
+    q = torch.from_numpy(_unit_rows(rng, 512, 64))
+    whole = dense_product(q[:4], emb)
+    for n in range(1, 40):
+        assert torch.equal(dense_product(q[:4], emb[:n]).view(torch.int32),
+                           whole[:, :n].view(torch.int32)), n
+        start = 39 - n
+        assert torch.equal(
+            chunk_product(q[:4], emb, start, n).view(torch.int32),
+            whole[:, start:].view(torch.int32)), n
+    big = dense_product(q, emb)
+    for b in (0, 1, 3):
+        assert torch.equal(dense_product(q[b:b + 1], emb).view(torch.int32),
+                           big[b:b + 1].view(torch.int32)), b
+    assert torch.equal(big[:4].view(torch.int32), whole.view(torch.int32))
+    assert whole.numpy().tobytes() == fma_chain(q[:4], emb).tobytes()
+
+
+def test_score_names_bits_do_not_depend_on_the_wanted_set():
+    """``search_names`` (the failover slice) gives each name the same
+    bits whether it is asked alone, in any prefix of the column, with a
+    scattered few or with the whole column, for one query or the batch,
+    and those bits are the fixed-order oracle's. Dense rows and long
+    query bags, so that every dim carries a term of each dot."""
+    rng = np.random.default_rng(5)
+    col = EmbeddingColumn(HashEmbedder(64), min_doc_capacity=8,
+                          device="cpu")
+    names = [f"d{i:04d}" for i in range(41)]
+    col.install_arrays(_unit_rows(rng, 41, 64), names)
+    col.commit()
+    bags = [{f"w{int(w)}": float(c) for w, c in zip(
+        rng.integers(0, 5000, 120), rng.integers(1, 5, 120))}
+        for _ in range(4)]
+    whole = col.search_names(bags, names)
+    sets = [names[:n] for n in range(1, 42)] + [
+        [names[5]], names[7:14], names[::3], ["missing"] + names[30:]]
+    for wanted in sets:
+        held = [n for n in wanted if n in col._slot]
+        for qi, got in enumerate(col.search_names(bags, wanted)):
+            assert got == {n: whole[qi][n] for n in held}, (qi, len(held))
+        for qi, bag in enumerate(bags):
+            assert col.search_names([bag], wanted)[0] == \
+                {n: whole[qi][n] for n in held}, (qi, len(held))
+    q = np.stack([col.embedder.embed_query(b) for b in bags])
+    oracle = fma_chain(q, np.stack([col._vecs[n] for n in names]))
+    for qi in range(len(bags)):
+        assert np.array([whole[qi][n] for n in names], np.float32) \
+            .tobytes() == oracle[qi].tobytes(), qi
+
+
 def test_matmul_runs_full_f32():
     """TF32 is off for the dense product (the JAX package multiplies at
     Precision.HIGHEST)."""
@@ -334,8 +450,21 @@ def test_engine_dense_topk_matches_jax_engine():
                                    rtol=1e-6, atol=1e-7)
     assert got[0] and all(len(g) == 10 for g in got)
     names = sorted(docs)[::7] + ["missing.txt"]
-    assert te.search_dense_names(queries, names) \
-        == je.search_dense_names(queries, names)
+    got, want = (te.search_dense_names(queries, names),
+                 je.search_dense_names(queries, names))
+    held = [n for n in names if n in je.dense._vecs]
+    q = np.stack([je.dense.embedder.embed_query(je.analyzer.counts(x))
+                  for x in queries])
+    oracle = fma_chain(q, np.stack([je.dense._vecs[n] for n in held]))
+    for g, w, o in zip(got, want, oracle):
+        assert sorted(g) == sorted(w) == sorted(held)
+        # the port: the fixed-order oracle over the JAX package's vectors,
+        # to the bit; the JAX package's numpy dots within f32 rounding
+        assert np.array([g[n] for n in held], np.float32).tobytes() \
+            == o.tobytes()
+        np.testing.assert_allclose([g[n] for n in held],
+                                   [w[n] for n in held],
+                                   rtol=1e-6, atol=1e-7)
     assert te.dense_stats()["docs"] == je.dense_stats()["docs"] == 260
     # the sparse plane keeps answering as before
     assert [[h.name for h in hs] for hs in te.search_batch(queries[:4])] \

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from tests.oracle import bm25_scores, random_corpus, tfidf_scores
+from tests.test_torch_dense import fma_chain
 from tfidf_tpu.ops.csr import build_coo
 from tfidf_tpu.ops.scoring import make_query_batch as jax_query_batch
 from tfidf_tpu.ops.topk import unpack_topk as jax_unpack
@@ -340,6 +341,35 @@ def test_mesh_dense_matches_jax_and_bruteforce(shape, cuts):
         order = np.lexsort((np.arange(22), -full[i]))[:k]
         assert ti[i].tolist() == order.tolist(), i
         np.testing.assert_allclose(tv[i], full[i, order], rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,cuts", [((4, 2), [0, 7, 14, 21, 22]),
+                                        ((2, 1), [0, 11, 22])])
+def test_mesh_dense_exact_tie_breaks_toward_the_lower_row(shape, cuts):
+    """Copies of one row at several positions of short and long shards
+    score the same bits (the fixed-order oracle's), so for queries near
+    that row the copies fill the top-k in global row order, the lower
+    row first, as ``lax.top_k`` breaks the tie."""
+    rng = np.random.default_rng(7)
+    dim, dim_pad = 72, 128
+    rows = rng.standard_normal((22, dim)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    copies = [1, 3, 5, 6, 12, 18, 21]
+    for r in copies[1:]:
+        rows[r] = rows[copies[0]]
+    shards = [rows[cuts[i]:cuts[i + 1]] for i in range(shape[0])]
+    q = np.zeros((8, dim_pad), np.float32)
+    q[:, :dim] = rows[1] + 0.02 * rng.standard_normal((8, dim)).astype(
+        np.float32)
+    pm = cpu_mesh(shape)
+    tv, ti = unpack_topk(mesh_dense.make_mesh_dense_search(
+        pm, k=len(copies))(
+        q, *mesh_dense.shard_dense_column(pm, shards, dim_pad)))
+    want = fma_chain(q[:, :dim], rows[1:2])[:, 0]
+    assert [i for i in range(8) if ti[i].tolist() != copies] == []
+    for i in range(8):
+        assert np.asarray(tv[i], np.float32).tobytes() == \
+            np.full(len(copies), want[i], np.float32).tobytes(), i
 
 
 def test_mesh_dense_shard_count_mismatch_refused():

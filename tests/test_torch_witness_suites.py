@@ -22,6 +22,7 @@ here too: a closure inside a sanctioned stage is named by that stage, and
 the host fallback is in the static cone.
 """
 
+import glob
 import os
 import re
 import subprocess
@@ -134,6 +135,18 @@ def test_runner_names_each_suite_list():
             assert os.path.isfile(os.path.join(ROOT, path)), path
             assert not path.endswith(("test_torch_graftcheck.py",
                                       "test_torch_devicecheck.py"))
+
+
+def test_the_chaos_suites_are_witnessed():
+    """Every chaos file's unmarked tests run under the lock witness, and
+    the partition file's under the protocol witness, as the JAX targets
+    run their chaos files (the runner's ``-m "not slow"`` keeps the
+    ``slow`` jobs out)."""
+    chaos = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
+        os.path.join(ROOT, "tests", "test_torch_chaos_*.py")))
+    assert len(chaos) >= 12
+    assert set(chaos) <= set(pw.LOCKDEP_SUITES)
+    assert "tests/test_torch_chaos_partition.py" in pw.PROTOCOL_SUITES
 
 
 def test_closure_in_a_sanctioned_stage_is_named_by_the_stage(tmp_path):

@@ -74,6 +74,9 @@ def _load_cfg(args, **overrides) -> Config:
 
 
 def cmd_serve(args) -> int:
+    from tfidf_tpu_torch.boot import BootClock
+    clock = BootClock()
+    clock.torch_import()
     from tfidf_tpu_torch.cluster.coordination import (CoordinationClient,
                                                       CoordinationServer)
     from tfidf_tpu_torch.cluster.node import SearchNode
@@ -82,6 +85,7 @@ def cmd_serve(args) -> int:
     if args.distributed:
         cfg = cfg.replace(distributed=True)
     device = _device(args)
+    clock.device(device, kernel=cfg.use_pallas)
     if cfg.distributed:
         # the multi-process mesh: join the process group (NCCL on the
         # card, gloo with --device cpu) before the engine builds its mesh
@@ -191,6 +195,7 @@ def cmd_serve(args) -> int:
     print(f"node up at {node.url} "
           f"({'leader' if node.is_leader() else 'worker'}); "
           f"coordinator {cfg.coordinator_address}", flush=True)
+    print(clock.line(), flush=True)
 
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())

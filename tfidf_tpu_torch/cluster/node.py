@@ -1727,19 +1727,16 @@ class SearchNode(ScatterReadPlane):
 
     def _replace_batch(self, docs: list[dict], old_worker: str) -> int:
         try:
-            resp = self.leader_upload_batch(docs)
+            resp = self.leader_upload_batch(docs, moved_from=old_worker)
         except Exception as e:
             log.warning("re-placement batch failed", err=repr(e),
                         docs=len(docs))
             return 0
-        # only names a worker ACCEPTED count as moved: 'skipped' are
-        # media-type rejections, 'failed' are transport-errored groups
-        # that were never indexed anywhere
-        not_placed = {s["name"] for s in resp.get("skipped", ())}
-        not_placed.update(resp.get("failed", ()))
-        return self._note_moved(
-            [d["name"] for d in docs if d["name"] not in not_placed],
-            old_worker)
+        # only names a worker ACCEPTED count as moved: each confirmed
+        # copy recorded its pending delete on old_worker as it was
+        # confirmed ('skipped' media-type rejections and 'failed'
+        # transport-errored groups were never indexed anywhere)
+        return resp["moved"]
 
     # ---- anti-entropy replication repair ----
 
@@ -2058,8 +2055,8 @@ class SearchNode(ScatterReadPlane):
                 # cache empty for our workers and 500 a healthy upload
                 self._size_cache = (ts2, {**polled, **cur})
 
-    def _leg_succeeded(self, name: str, worker: str,
-                       nbytes: int) -> None:
+    def _leg_succeeded(self, name: str, worker: str, nbytes: int,
+                       moved_from: str | None = None) -> bool:
         """One upload leg accepted: confirm the placement leg and bump
         the local size estimate (only for workers already present in
         the cache: re-inserting an evicted/unpolled worker at near-zero
@@ -2068,11 +2065,12 @@ class SearchNode(ScatterReadPlane):
         # a confirmed copy changed that worker's shard (and its df) —
         # cached query results stamped before this commit must die
         self.bump_result_generation()
-        self.placement.leg_success(name, worker)
+        noted = self.placement.leg_success(name, worker, moved_from)
         with self._placement_lock:
             sizes = self._size_cache[1]
             if worker in sizes:
                 sizes[worker] += nbytes
+        return noted
 
     def _leg_failed(self, name: str, worker: str,
                     app_reject: bool) -> None:
@@ -2199,7 +2197,8 @@ class SearchNode(ScatterReadPlane):
         return {"worker": confirmed[0], "replicas": confirmed,
                 "sizes": sizes}
 
-    def leader_upload_batch(self, docs: list[dict]) -> dict:
+    def leader_upload_batch(self, docs: list[dict],
+                            moved_from: str | None = None) -> dict:
         """Bulk ingest (framework addition — the reference only places
         one file per request): place each named document on its
         ``replication_factor`` least-loaded workers with the same
@@ -2277,6 +2276,7 @@ class SearchNode(ScatterReadPlane):
         full_disk_errors: dict[str, Exception] = {}
         skipped_by_name: dict[str, dict] = {}
         confirmed_names: set[str] = set()
+        moved = 0
         for fut, (w, group) in futs.items():
             try:
                 try:
@@ -2321,7 +2321,8 @@ class SearchNode(ScatterReadPlane):
                 if name in w_skipped:
                     self.placement.leg_failure(name, w)
                     continue
-                self._leg_succeeded(name, w, len(d.get("text", "")))
+                moved += self._leg_succeeded(
+                    name, w, len(d.get("text", "")), moved_from)
                 confirmed_names.add(name)
         if self.config.shard_recovery:
             for d in docs:
@@ -2338,6 +2339,8 @@ class SearchNode(ScatterReadPlane):
                 raise next(iter(full_disk_errors.values()))
             raise RuntimeError(f"all workers failed: {errors}")
         out = {"placed": placed}
+        if moved_from is not None:
+            out["moved"] = moved
         if skipped_by_name:
             out["skipped"] = list(skipped_by_name.values())
         if errors:

@@ -197,11 +197,17 @@ class PlacementMap:
         key = (name, worker)
         self._inflight[key] = self._inflight.get(key, 0) + 1
 
-    def leg_success(self, name: str, worker: str) -> None:
+    def leg_success(self, name: str, worker: str,
+                    moved_from: str | None = None) -> bool:
         """One upload leg accepted by ``worker``: the placement of
         ``name`` on it is confirmed (and becomes persistable AND
         ownable — confirmation changes the owner-candidate set, so the
-        generation bumps)."""
+        generation bumps). ``moved_from``: the leg re-places the name
+        away from that (dead) worker; its pending delete there is
+        recorded in the same step, under the same rule as
+        :meth:`note_moved`, so no reader sees the new copy without the
+        old one's pending delete. Returns whether it was recorded."""
+        noted = False
         with self.lock:
             key = (name, worker)
             n = self._inflight.get(key, 1) - 1
@@ -218,7 +224,15 @@ class PlacementMap:
                 self.replicas[name] = reps + (worker,)
                 self.gen += 1
             self._unmove_locked(worker, name)
+            if moved_from is not None \
+                    and moved_from not in self.replicas[name]:
+                moved = self.moved.setdefault(moved_from, set())
+                if name not in moved:
+                    moved.add(name)
+                    self.gen += 1
+                    noted = True
             self._mark_dirty_locked()
+        return noted
 
     def reset_for_follower(self) -> None:
         """Demotion: a non-leader's map has no authority — clear it so

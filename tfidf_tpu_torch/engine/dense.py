@@ -30,7 +30,7 @@ import torch
 from tfidf_tpu_torch.device import resolve_device
 from tfidf_tpu_torch.engine.embedder import Embedder
 from tfidf_tpu_torch.ops.csr import next_capacity
-from tfidf_tpu_torch.ops.dense import packed_dense_topk
+from tfidf_tpu_torch.ops.dense import dense_product, packed_dense_topk
 from tfidf_tpu_torch.ops.topk import unpack_topk
 
 _ALIGN = 8       # floats: a row starts on a 32-byte sector
@@ -134,20 +134,23 @@ class EmbeddingColumn:
                      names: Sequence[str]) -> List[Dict[str, float]]:
         """Failover-slice path: exact scores for a specific name set
         (names this column doesn't hold are simply absent). Host-side
-        per-pair dots, as in the JAX package — a (query, doc) cosine
-        depends only on the two vectors, so replicas agree regardless of
-        what else they hold."""
+        dots through ``ops/dense.dense_product`` on the CPU, whose bits
+        depend only on the two vectors: a name scores the same bits
+        whatever ``wanted`` set or batch it shares, so replicas agree
+        regardless of what else they hold. (The JAX package takes numpy's
+        ``rows @ q`` here, whose bits change with the row count.)"""
         if self._dirty or self._emb_dev is None:
             self.commit()
         wanted = [n for n in names if n in self._slot]
         out: List[Dict[str, float]] = []
-        if not wanted:
+        if not wanted or not queries_counts:
             return [{} for _ in queries_counts]
-        rows = np.stack([np.asarray(
-            self._vecs[n], dtype=np.float32) for n in wanted])
-        for counts in queries_counts:
-            q = self.embedder.embed_query(counts).astype(np.float32)
-            scores = rows @ q
+        rows = torch.from_numpy(np.stack([np.asarray(
+            self._vecs[n], dtype=np.float32) for n in wanted]))
+        q = torch.from_numpy(np.stack([
+            self.embedder.embed_query(counts).astype(np.float32)
+            for counts in queries_counts]))
+        for scores in dense_product(q, rows).numpy():
             out.append({n: float(s) for n, s in zip(wanted, scores)})
         return out
 

@@ -3,7 +3,7 @@
 The counterpart of ``tfidf_tpu/ops/dense.py``, which holds no Pallas
 kernel: there each doc chunk is one f32 matmul at ``Precision.HIGHEST``
 under ``jax.jit``, followed by a masked ``lax.top_k`` and an exact merge.
-Here the product is ``torch.matmul`` in f32 (TF32 is off:
+Here the product is :func:`dense_product` in f32 (TF32 is off:
 :func:`tfidf_tpu_torch.device.set_full_f32`), the selection is the port's
 int64-keyed top-k (``ops/topk.py``: descending score, ties toward the
 lower row on every device, ``-inf`` and negative cosines in order), and
@@ -14,15 +14,24 @@ selection (a zero row would outrank genuinely negative cosines), and the
 tail chunk's start is clamped to ``doc_cap - c`` with the rows it re-reads
 (``idx < off``) masked, so no doc can win twice.
 
-Bit contract. :func:`dense_scores` builds the full score matrix from the
-very products :func:`packed_dense_topk` selects from (the same chunk
-bounds, each product the same ``[B, dim] x [c, dim]^T`` call), so within
+Bit contract. Every product goes through :func:`dense_product`. On the
+CPU it is a fixed-order reduction: each (query, row) cosine is the f32
+fused multiply-add chain over ``dim`` in index order (``torch.addcmul``,
+one elementwise op per dim, rows in sub-chunks of at most
+``CPU_TILE`` accumulator elements), so its bits depend on the two
+vectors alone: not on the row's position, on how many rows share the
+product (chunk, shard, ``wanted`` set) or on the batch size. The chain is
+the order the CPU BLAS's full-size GEMM kernel takes, so on a full tile
+it also equals ``torch.matmul``'s bits; a BLAS tail block (a few rows)
+reduces in another order, which is why the CPU does not call it. On the
+card the product is ``torch.matmul`` (cuBLAS). :func:`dense_scores`
+builds the full score matrix from the very products
+:func:`packed_dense_topk` selects from (the same chunk bounds), so within
 one column the chunked top-k equals the top-k of ``dense_scores`` to the
-bit on any device: the selection is exact and the inputs are the same
-bits. Across chunk sizes or batch sizes the product's bits are whatever
-the matmul library gives for that shape; on the CPU they do not depend on
-the doc-axis length, and on the card ``chip_smoke.py`` counts and records
-what differs.
+bit on any device; across chunk or batch sizes the card's bits are
+cuBLAS's for that shape, and ``chip_smoke.py`` gates that identical rows
+at any position score identical bits there and records what else
+differs.
 """
 
 from __future__ import annotations
@@ -47,11 +56,34 @@ def chunk_bounds(doc_cap: int, c: int) -> list[tuple[int, int]]:
     return [(off, min(off, doc_cap - c)) for off in range(0, n * c, c)]
 
 
+CPU_TILE = 1 << 16   # f32 accumulator elements (256 KiB) per CPU sub-chunk
+
+
+def dense_product(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """f32 ``[B, R]`` dots of every query ``[B, dim]`` with every row
+    ``[R, dim]``. The card: one ``torch.matmul``. The CPU: per sub-chunk
+    of rows, an accumulator ``[B, sub]`` (at most ``CPU_TILE`` elements)
+    takes one fused multiply-add per dim in index order, so each element's
+    bits are a function of its two vectors only (module docstring)."""
+    if queries.device.type != "cpu":
+        return torch.matmul(queries, rows.T)
+    b, dim = queries.shape
+    out = torch.empty((b, rows.shape[0]), dtype=torch.float32)
+    sub = max(1, CPU_TILE // max(b, 1))
+    for s in range(0, rows.shape[0], sub):
+        part = rows[s:s + sub].T.contiguous()           # [dim, sub]
+        acc = torch.zeros((b, part.shape[1]), dtype=torch.float32)
+        for d in range(dim):
+            acc.addcmul_(queries[:, d:d + 1], part[d:d + 1])
+        out[:, s:s + sub] = acc
+    return out
+
+
 def chunk_product(queries: torch.Tensor, emb: torch.Tensor, start: int,
                   c: int) -> torch.Tensor:
     """f32 ``[B, c]`` cosines of the batch against rows ``start:start+c``
     (rows are L2-normalized at embed time, so the dot IS the cosine)."""
-    return torch.matmul(queries, emb[start:start + c].T)
+    return dense_product(queries, emb[start:start + c])
 
 
 def select_chunk(part: torch.Tensor, start: int, off: int, num_docs: int,

@@ -4,8 +4,11 @@ The counterpart of ``tfidf_tpu/parallel/mesh_dense.py``. The embedding
 rows are sharded over the ``docs`` rows (each row owns a disjoint,
 contiguous range of rows; ``base`` carries each row's global offset, the
 role of the owner map), every docs row scores its rows with one f32
-matrix product (``torch.matmul``, TF32 off as ``device.set_full_f32``
-sets it: the JAX step's ``Precision.HIGHEST``) and takes its top-k with
+product (``ops/dense.dense_product``: ``torch.matmul`` on the card, TF32
+off as ``device.set_full_f32`` sets it, the JAX step's
+``Precision.HIGHEST``; on the CPU a fixed-order reduction, so a row's
+bits do not depend on its shard's length and an exact tie breaks toward
+the lower row) and takes its top-k with
 the port's keyed selection (ties toward the lower row, as ``lax.top_k``),
 and one k-sized ``all_gather`` + exact merge gives the global list. Exact
 by the same argument as the sparse gather: the global top-k is contained
@@ -18,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tfidf_tpu_torch.ops.dense import dense_product
 from tfidf_tpu_torch.ops.topk import _keyed_topk, merge_topk, pack_topk
 from tfidf_tpu_torch.parallel.mesh import Mesh
 
@@ -69,7 +73,7 @@ def make_mesh_dense_search(mesh: Mesh, *, k: int):
         for d in mesh.local_rows:
             e = emb[d]
             cap = e.shape[0]
-            scores = torch.matmul(q.to(e.device), e.T)        # [B, cap]
+            scores = dense_product(q.to(e.device), e)        # [B, cap]
             idx = torch.arange(cap, device=e.device)
             masked = scores.masked_fill(idx >= int(num_live[d]),
                                         float("-inf"))

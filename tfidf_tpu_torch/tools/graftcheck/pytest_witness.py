@@ -60,12 +60,17 @@ import pytest
 # coordinator, ``router``), through the child hook. Left out:
 # test_torch_graftcheck.py and test_torch_devicecheck.py build witnesses
 # of their own (a nested lockdep install patches nothing: the modules
-# already hold the outer proxy, so the inner witness would see no lock);
-# the test_torch_chaos_*.py jobs are ``slow`` and kill their children
-# with SIGKILL, which leaves no report. test_torch_state.py's
-# coordinator-ensemble case stays in: unlike the Raft tests the JAX target
-# leaves out for their 1 s election margins, it waits up to 10 s for its
-# leader, and it passed instrumented.
+# already hold the outer proxy, so the inner witness would see no lock).
+# Every test_torch_chaos_*.py file is in, as the JAX ``make lockdep``
+# runs its chaos files: the runner passes ``-m "not slow"``, so their
+# ``slow`` jobs (whose SIGKILLed children could leave no report) do not
+# run, and their unmarked in-process tests do: the partition file's
+# cases of the cluster plane's repairs, the coordinator's WAL recovery,
+# the resilience file's re-placement confirm, the compute plane's
+# harness. test_torch_state.py's coordinator-ensemble case stays in:
+# unlike the Raft tests the JAX target leaves out for their 1 s election
+# margins, it waits up to 10 s for its leader, and it passed
+# instrumented.
 LOCKDEP_SUITES = (
     "tests/test_torch_fleet.py", "tests/test_torch_fleet_segments.py",
     "tests/test_torch_state.py", "tests/test_torch_segments.py",
@@ -73,6 +78,16 @@ LOCKDEP_SUITES = (
     "tests/test_torch_mesh_engine.py", "tests/test_torch_mesh_ell.py",
     "tests/test_torch_worker.py", "tests/test_torch_surface.py",
     "tests/test_torch_cli.py",
+    "tests/test_torch_chaos_autopilot.py",
+    "tests/test_torch_chaos_compute.py", "tests/test_torch_chaos_coord.py",
+    "tests/test_torch_chaos_hybrid.py",
+    "tests/test_torch_chaos_overload.py",
+    "tests/test_torch_chaos_partition.py",
+    "tests/test_torch_chaos_powerloss.py",
+    "tests/test_torch_chaos_rebalance.py",
+    "tests/test_torch_chaos_replica.py",
+    "tests/test_torch_chaos_resilience.py",
+    "tests/test_torch_chaos_router.py", "tests/test_torch_chaos_upgrade.py",
 )
 
 # Suite choice: the port fleets (leader scatter, uploads, deletes, R=2
@@ -80,10 +95,14 @@ LOCKDEP_SUITES = (
 # the front door, the router tier, the admin planes), the mixed fleet's
 # port worker (sparse, dense and hybrid replies) and the CLI's children
 # (leader, worker and router processes, through the child hook) together
-# drive every CORE_EXERCISED row on port servers.
+# drive every CORE_EXERCISED row on port servers. The partition chaos
+# file's unmarked cases drive the fence and nemesis wire surface (stale
+# epochs refused, deletes and their fences, rejoins), as
+# test_partition.py does in the JAX ``make protocol-witness``.
 PROTOCOL_SUITES = (
     "tests/test_torch_fleet.py", "tests/test_torch_surface.py",
     "tests/test_torch_worker.py", "tests/test_torch_cli.py",
+    "tests/test_torch_chaos_partition.py",
 )
 
 # Suite choice: the suites that drive the serving cone on port engines —
